@@ -13,7 +13,11 @@ Phases (any failure raises, so the script exits non-zero):
    (L2 flushed before every launch) beside its HBM byte bound:
    K1 ``csr_moment_sketch`` (with and without tie counts), K2 ``csr_dmsg``,
    K3 ``csr_pretrans_sketch`` (with and without ties and edge features, on
-   a ghost sender table, with bfloat16 v/ef/ke) and K4 ``csr_pretrans_dmsg``;
+   a ghost sender table, with bfloat16 v/ef/ke, on a mixed case of whole
+   and split nodes with ties across segment boundaries, with Fe = 70, and
+   with the row pointers as an uncut segment table) and K4
+   ``csr_pretrans_dmsg``; two runs of K3 and K4 on the hub must give the
+   same bits;
 4. train, the flagship ZINC step (PNANetMolecules, L=4, hidden 70, out 60,
    edge_dim 50, towers 5, 1024 synthetic graphs) on one set of weights, in
    four configurations: float32 on ``kernel='csr'`` (K1/K2) and on
@@ -48,6 +52,7 @@ from pna_tpu_torch.nn.nets import PNANetMolecules
 from pna_tpu_torch.ops import build, csr_kernels
 from pna_tpu_torch.ops import csr_fused_kernels as fk
 from pna_tpu_torch.ops.csr_bank import csr_layout
+from pna_tpu_torch.ops.csr_kernels import SEG, CSRSegments, csr_segments
 from pna_tpu_torch.train.step import loss_and_grads, make_optimizer, train_step
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and float32
@@ -66,6 +71,7 @@ FE = FLAGSHIP['edge_dim']
 TRAIN_STEPS = 12
 TIMED_FROM = 2               # steps before this one are warm-up
 GHOST = 13                   # extra sender rows of the ghost-table case
+SLEEP_CYCLES = 700_000       # about 0.4 ms of the card at 1.7 GHz
 
 # the kernels of each backend; the other backend's must not launch
 BACKEND_KERNELS = {'csr': ('csr_moment_sketch', 'csr_dmsg'),
@@ -118,20 +124,24 @@ def card_line() -> str:
 def time_cuda(fn, flush, reps=20):
     """Median ms of ``fn`` on the card, CUDA events around each launch, the
     L2 cache flushed before each one (a kernel of the step finds its inputs
-    cold)."""
+    cold).  Before the first event the card is kept busy for about 0.4 ms
+    (``torch.cuda._sleep``), so that the host has queued ``fn`` by the time
+    the card reaches it: without that a wrapper whose host work outlasts the
+    flush would be timed, not its kernel."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         events.append((start, end))
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
@@ -287,13 +297,14 @@ def pretrans_bounds(u, v, snd, ptr, ef, ke, with_ties):
     return k3, k4
 
 
-def check_pretrans(u, v, snd, ptr, ef, ke, gen):
+def check_pretrans(u, v, snd, ptr, ef, ke, segs, gen):
     """K3 with and without ties and K4 against their plain versions on one
-    set of inputs; returns (K3 error, K4 error, K4 arguments)."""
+    set of inputs (``segs``: the segment table of ``ptr``); returns (K3
+    error, K4 error, K4 arguments, K3's six outputs)."""
     msg = fk.pretrans_messages_plain(u, v, snd, ptr, ef, ke)
     plain6 = fk.csr_pretrans_sketch_plain(u, v, snd, ptr, ef, ke, True)
-    kern6 = fk.csr_pretrans_sketch(u, v, snd, ptr, ef, ke, True)
-    kern4 = fk.csr_pretrans_sketch(u, v, snd, ptr, ef, ke, False)
+    kern6 = fk.csr_pretrans_sketch(u, v, snd, ptr, ef, ke, True, segs)
+    kern4 = fk.csr_pretrans_sketch(u, v, snd, ptr, ef, ke, False, segs)
     torch.cuda.synchronize()
     e3 = max(check_sketch(kern6, plain6, msg, ptr, "K3"),
              check_sketch(kern4, plain6[:4], msg, ptr, "K3"))
@@ -305,12 +316,12 @@ def check_pretrans(u, v, snd, ptr, ef, ke, gen):
     fields[2] /= kern6[4]
     fields[3] /= kern6[5]
     args = (u, v, snd, ptr, *fields, kern6[2], kern6[3], ef, ke)
-    d_k, dv_k = fk.csr_pretrans_dmsg(*args)
+    d_k, dv_k = fk.csr_pretrans_dmsg(*args, segs)
     d_p, dv_p = fk.csr_pretrans_dmsg_plain(*args)
     torch.cuda.synchronize()
-    _, valid = csr_kernels._row_segments(ptr, snd.shape[0])
     scale = csr_kernels.csr_moment_sketch_plain(d_p.abs(), ptr)[0]
-    d_k, d_p = d_k[valid], d_p[valid]              # other rows: unwritten
+    # every row: K4 writes the rows outside every range as 0, as the plain
+    # version does
     e4 = float((d_k - d_p).abs().max())
     if not torch.allclose(d_k, d_p, rtol=DMSG_RTOL, atol=DMSG_ATOL):
         raise AssertionError(f"K4 d_msg disagrees, max err {e4}")
@@ -319,7 +330,36 @@ def check_pretrans(u, v, snd, ptr, ef, ke, gen):
     if not bool((dv_err <= SUM_RTOL * scale + 1e-6).all()):
         raise AssertionError(f"K4 d_v disagrees, max err "
                              f"{float(dv_err.max())}")
-    return e3, e4, args
+    return e3, e4, args + (segs,), kern6
+
+
+def segment_case(dev, gen):
+    """A layout of whole and split nodes: 3,000 nodes of in-degree 0..4,
+    then nodes of SEG - 1, SEG, SEG + 1, 0, 3 SEG, 0, 2 SEG + 5 and 1,000
+    edges, then 12 pad rows.  The node of 3 SEG edges has, either side of its
+    first segment boundary, two edges with one sender (a u row of +100) and
+    one ef row, and either side of its second boundary two with a u row of
+    -100: its max and its min are each reached once in two segments, so both
+    tie counts must come out as 2 at every feature.  Returns (u, v, snd,
+    ptr, ef, ke, tie node, first row of each tied pair)."""
+    f = FLAGSHIP['hidden_dim']
+    deg = torch.cat([torch.randint(0, 5, (3000,), generator=gen),
+                     torch.tensor([SEG - 1, SEG, SEG + 1, 0, 3 * SEG, 0,
+                                   2 * SEG + 5, 1000])])
+    n, tie_node = deg.numel(), 3004
+    ptr = torch.zeros(n + 1, dtype=torch.int32)
+    ptr[1:] = torch.cumsum(deg, 0)
+    e = int(ptr[-1]) + 12
+    snd = torch.randint(2, n, (e,), generator=gen, dtype=torch.int32)
+    bond = torch.randint(0, 4, (e,), generator=gen)
+    lo = int(ptr[tie_node])
+    pairs = (lo + SEG - 1, lo + 2 * SEG - 1)
+    for at, sender in zip(pairs, (0, 1)):
+        snd[at:at + 2] = sender
+        bond[at:at + 2] = 0
+    u, v, ef, ke = pretrans_inputs(ptr, snd, n, bond, dev, gen)
+    u[0], u[1] = 100.0, -100.0
+    return u, v, snd.to(dev), ptr.to(dev), ef, ke, tie_node, pairs
 
 
 def fused_kernel_phase(graph, dev, flush):
@@ -330,10 +370,11 @@ def fused_kernel_phase(graph, dev, flush):
     gen = torch.Generator().manual_seed(2)
     layout = csr_layout(graph.edge_ptr.to(dev), graph.edge_mask.to(dev),
                         senders=graph.senders.to(dev))
-    ptr, snd = layout.ptr, layout.senders
+    ptr, snd, segs = layout.ptr, layout.senders, layout.segments
     n = ptr.numel() - 1
     bond = graph.edge_feats.squeeze(-1)
     hub_ptr, hub_e = hub_case(dev, gen)
+    hub_segs = csr_segments(hub_ptr)
     hub_snd = torch.randint(0, hub_ptr.numel() - 1, (hub_e,), generator=gen,
                             dtype=torch.int32).to(dev)
     hub_bond = torch.randint(0, 4, (hub_e,), generator=gen)
@@ -352,20 +393,22 @@ def fused_kernel_phase(graph, dev, flush):
 
     # the flagship shapes, float32 with edge features: checked and timed
     u, v, ef, ke = pretrans_inputs(ptr, snd, n, bond, dev, gen)
-    e3, e4, args4 = check_pretrans(u, v, snd, ptr, ef, ke, gen)
+    log(f"kernels[slice] K3/K4 segment table (SEG {SEG}): {segs.n_seg} "
+        f"segments of {n} nodes, {segs.n_split} split nodes")
+    e3, e4, args4, _ = check_pretrans(u, v, snd, ptr, ef, ke, segs, gen)
     record(e3, e4)
     k3b, k4b = pretrans_bounds(u, v, snd, ptr, ef, ke, True)
     k3b4, _ = pretrans_bounds(u, v, snd, ptr, ef, ke, False)
     t = {
         "k3": time_cuda(lambda: fk.csr_pretrans_sketch(
-            u, v, snd, ptr, ef, ke, True), flush),
+            u, v, snd, ptr, ef, ke, True, segs), flush),
         "k3_no_ties": time_cuda(lambda: fk.csr_pretrans_sketch(
-            u, v, snd, ptr, ef, ke, False), flush),
+            u, v, snd, ptr, ef, ke, False, segs), flush),
         "k3_plain": time_cuda(lambda: fk.csr_pretrans_sketch_plain(
             u, v, snd, ptr, ef, ke, True), flush),
         "k4": time_cuda(lambda: fk.csr_pretrans_dmsg(*args4), flush),
-        "k4_plain": time_cuda(lambda: fk.csr_pretrans_dmsg_plain(*args4),
-                              flush),
+        "k4_plain": time_cuda(
+            lambda: fk.csr_pretrans_dmsg_plain(*args4[:-1]), flush),
     }
     log(f"kernels[slice] K3/K4 N={n} E={snd.shape[0]} rows="
         f"{int(ptr[-1] - ptr[0])} F={u.shape[1]} Fe={FE} float32: K3 ties "
@@ -390,12 +433,13 @@ def fused_kernel_phase(graph, dev, flush):
                              ke.bfloat16()),
     }
     for name, a in variants.items():
-        e3, e4, args4 = check_pretrans(*a, gen)
+        e3, e4, args4, _ = check_pretrans(*a, segs, gen)
         record(e3, e4)
         line = f"kernels[slice] K3/K4 {name}: max err K3 {e3:.3g} K4 {e4:.3g}"
         if name != "ghost table":
             b3, b4 = pretrans_bounds(*a, True)
-            t3 = time_cuda(lambda: fk.csr_pretrans_sketch(*a, True), flush)
+            t3 = time_cuda(lambda: fk.csr_pretrans_sketch(*a, True, segs),
+                           flush)
             t4 = time_cuda(lambda: fk.csr_pretrans_dmsg(*args4), flush)
             key = "no_e" if name == "no edge features" else "bf16"
             res["csr_pretrans_sketch"].update(
@@ -406,22 +450,65 @@ def fused_kernel_phase(graph, dev, flush):
                      f"{t4:.4f} ms (bound {b4[0]:.4f})")
         log(line)
 
-    # the hub, float32 with edge features
+    # whole and split nodes, ties across segment boundaries: float32,
+    # bfloat16, and a wider ef (Fe 70)
+    mu, mv, msnd, mptr, mef, mke, tie_node, pairs = segment_case(dev, gen)
+    msegs = csr_segments(mptr)
+    log(f"kernels[segments] N={mptr.numel() - 1} E={msnd.shape[0]}: "
+        f"{msegs.n_seg} segments, {msegs.n_split} split nodes in "
+        f"{msegs.n_part} segments")
+    if msegs.n_split != 4 or msegs.n_part != 3 + 2 + 3 + 32:
+        raise AssertionError("segment case: unexpected segment table")
+    wide = torch.randn(msnd.shape[0], 70, generator=gen).to(dev)
+    for at in pairs:
+        wide[at + 1] = wide[at]
+    mixed = {
+        "float32": (mu, mv, msnd, mptr, mef, mke),
+        "bfloat16 v/ef/ke": (mu, mv.bfloat16(), msnd, mptr, mef.bfloat16(),
+                             mke.bfloat16()),
+        "Fe 70": (mu, mv, msnd, mptr, wide,
+                  torch.randn(70, mu.shape[1], generator=gen).to(dev)),
+    }
+    # the last with the row pointers as the table: no node is split, and
+    # the ranges longer than a sub-tile of 64 edges are walked in several
+    whole = CSRSegments(seg_ptr=mptr, n_seg=mptr.numel() - 1,
+                        n_nodes=mptr.numel() - 1)
+    mixed["float32, uncut table"] = mixed["float32"]
+    for name, a in mixed.items():
+        e3, e4, _, k6 = check_pretrans(
+            *a, whole if name.endswith("uncut table") else msegs, gen)
+        record(e3, e4)
+        if not (bool((k6[4][tie_node] == 2).all())
+                and bool((k6[5][tie_node] == 2).all())):
+            raise AssertionError(f"segment case ({name}): the ties across "
+                                 "segment boundaries were not merged")
+        log(f"kernels[segments] K3/K4 {name}: max err K3 {e3:.3g} K4 "
+            f"{e4:.3g}; ties across boundaries merged")
+
+    # the hub, float32 with edge features: checked, run twice, timed
     hu, hv, hef, hke = pretrans_inputs(hub_ptr, hub_snd,
                                        hub_ptr.numel() - 1, hub_bond, dev,
                                        gen)
     a = (hu, hv, hub_snd, hub_ptr, hef, hke)
-    e3, e4, args4 = check_pretrans(*a, gen)
+    e3, e4, args4, k6 = check_pretrans(*a, hub_segs, gen)
     record(e3, e4)
+    again = (fk.csr_pretrans_sketch(*a, True, hub_segs),
+             fk.csr_pretrans_dmsg(*args4))
+    first = (k6, fk.csr_pretrans_dmsg(*args4))
+    torch.cuda.synchronize()
+    for x, y in zip(first[0] + first[1], again[0] + again[1]):
+        if not torch.equal(x, y):
+            raise AssertionError("hub: two runs of K3/K4 differ")
     b3, b4 = pretrans_bounds(*a, True)
-    t3 = time_cuda(lambda: fk.csr_pretrans_sketch(*a, True), flush)
+    t3 = time_cuda(lambda: fk.csr_pretrans_sketch(*a, True, hub_segs), flush)
     t4 = time_cuda(lambda: fk.csr_pretrans_dmsg(*args4), flush)
     res["csr_pretrans_sketch"]["hub_ms"] = t3
     res["csr_pretrans_dmsg"]["hub_ms"] = t4
     log(f"kernels[hub] K3/K4 N={hub_ptr.numel() - 1} E={hub_e} F="
-        f"{hu.shape[1]} Fe={FE}: K3 ties {t3:.4f} ms (bound {b3[0]:.4f}), "
-        f"K4 {t4:.4f} ms (bound {b4[0]:.4f}); max err K3 {e3:.3g} K4 "
-        f"{e4:.3g}")
+        f"{hu.shape[1]} Fe={FE}, {hub_segs.n_seg} segments, "
+        f"{hub_segs.n_split} split nodes in {hub_segs.n_part} segments: K3 "
+        f"ties {t3:.4f} ms (bound {b3[0]:.4f}), K4 {t4:.4f} ms (bound "
+        f"{b4[0]:.4f}); max err K3 {e3:.3g} K4 {e4:.3g}; two runs equal")
     return res
 
 
@@ -578,8 +665,8 @@ def profile_steps(model, opt, graph, labels, step_ms, steps=3):
     log("  profile: host ops by self CPU time per step (profiled, so slower "
         "than the timed steps): " + "; ".join(
             f"{key} {ms:.3f} ms x{count}" for key, ms, count in host[:8]))
-    ours = {k: sum(r[1] for r in rows if f"{k}_kernel" in r[0])
-            for k in SOURCES}
+    # "<name>_" also takes K3/K4's merge kernels (none on an unsplit batch)
+    ours = {k: sum(r[1] for r in rows if f"{k}_" in r[0]) for k in SOURCES}
     log("  profile: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in
                                   ours.items()) + " per step")
     for key, ms, count in rows[:12]:

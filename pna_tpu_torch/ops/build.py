@@ -112,12 +112,19 @@ def load() -> ctypes.CDLL:
     lib.pna_csr_moment_sketch.restype = i
     lib.pna_csr_dmsg.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p, p]
     lib.pna_csr_dmsg.restype = i
-    lib.pna_csr_pretrans_sketch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                            i, p, p, p, p, p, p, i, p]
+    # 10 pointers (u .. ke), the bfloat16 flag, 8 sizes (n_seg .. fe)
+    fused_head = [p] * 10 + [i]
+    fused_sizes = [i] * 8
+    lib.pna_csr_pretrans_sketch.argtypes = (fused_head + fused_sizes
+                                            + [p] * 7 + [i, p])
     lib.pna_csr_pretrans_sketch.restype = i
-    lib.pna_csr_pretrans_dmsg.argtypes = [p, p, p, p, p, p, i, p, p, p, p,
-                                          p, p, i, i, i, i, i, p, p, p]
+    lib.pna_csr_pretrans_dmsg.argtypes = (fused_head + [p] * 6 + fused_sizes
+                                          + [p] * 4)
     lib.pna_csr_pretrans_dmsg.restype = i
+    lib.pna_pretrans_shared_bytes.argtypes = [i, i]
+    lib.pna_pretrans_shared_bytes.restype = ctypes.c_longlong
+    lib.pna_pretrans_shared_limit.argtypes = []
+    lib.pna_pretrans_shared_limit.restype = ctypes.c_longlong
     lib.pna_cuda_error_string.argtypes = [i]
     lib.pna_cuda_error_string.restype = ctypes.c_char_p
     return lib

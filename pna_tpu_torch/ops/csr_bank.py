@@ -16,21 +16,25 @@ the gather form is the same function and serves here as K2's plain version
 
 Layout: ``CSRLayout`` holds the row pointers clamped to the real-edge count
 (pad messages carry the pretrans bias, not zeros, and must not enter any
-node's statistics), the degrees, the clamped counts and the int32 senders the
-fused bank (``csr_fused.py``) reads.  It is built once per batch and shared
-by every layer.  ``node_fields`` folds the aggregator gradients into the four
+node's statistics), the degrees, the clamped counts and, for the fused bank
+(``csr_fused.py``), the int32 senders and the segment table that is the work
+list of K3/K4 (``csr_kernels.csr_segments``: ranges cut to at most ``SEG``
+edges; the row pointers themselves where collation says no node has more),
+built at its first use.  The layout is built once per batch and shared by
+every layer.  ``node_fields`` folds the aggregator gradients into the four
 node fields; both banks call it.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from pna_tpu_torch.ops.csr_kernels import csr_dmsg, csr_moment_sketch
+from pna_tpu_torch.ops.csr_kernels import (CSRSegments, csr_dmsg,
+                                           csr_moment_sketch, csr_segments)
 
 EPS = 1e-5
 AGGS = ('mean', 'sum', 'max', 'min', 'var', 'std')
@@ -47,6 +51,18 @@ class CSRLayout:
     cnt: torch.Tensor        # [N] float32 max(deg, 1)
     edge_mask: torch.Tensor  # [E] bool
     senders: Optional[torch.Tensor] = None   # [E] int32, contiguous
+    max_in_degree: Optional[int] = None      # from collation; None: unknown
+    _segments: Optional[CSRSegments] = field(default=None, repr=False)
+
+    @property
+    def segments(self) -> CSRSegments:
+        """K3/K4's work list, the segment table of ``ptr``, built when it is
+        first asked for: the CSR bank (K1/K2) never reads it and so never
+        pays for it (``csr_segments`` synchronises with the device unless
+        ``max_in_degree`` says that no node is split)."""
+        if self._segments is None:
+            self._segments = csr_segments(self.ptr, self.max_in_degree)
+        return self._segments
 
 
 def csr_layout(edge_ptr: torch.Tensor, edge_mask: torch.Tensor,
@@ -54,7 +70,10 @@ def csr_layout(edge_ptr: torch.Tensor, edge_mask: torch.Tensor,
                max_in_degree: Optional[int] = None,
                senders: Optional[torch.Tensor] = None) -> CSRLayout:
     """Bind a receiver-sorted layout; ``senders`` (the fused bank needs them)
-    are stored as contiguous int32.
+    are stored as contiguous int32; the segment table of the clamped
+    pointers is built at the fused bank's first use of ``layout.segments``
+    (no device synchronisation where ``max_in_degree`` is given and at most
+    ``SEG``).
 
     ``max_degree`` is the caller's in-degree bound hint (0 = none).  The
     kernels do not need it, but a hint below the true in-degree is an error,
@@ -75,12 +94,14 @@ def csr_layout(edge_ptr: torch.Tensor, edge_mask: torch.Tensor,
     if senders is not None:
         senders = senders.to(torch.int32).contiguous()
     return CSRLayout(ptr=ptr, deg=deg, cnt=torch.clamp(deg, min=1.0),
-                     edge_mask=edge_mask, senders=senders)
+                     edge_mask=edge_mask, senders=senders,
+                     max_in_degree=max_in_degree)
 
 
 def layout_from_graph(graph, max_degree: int = 0) -> CSRLayout:
+    # 0 is the field's default as well as a true value: read it as unknown
     return csr_layout(graph.edge_ptr, graph.edge_mask, max_degree,
-                      graph.max_in_degree, graph.senders)
+                      graph.max_in_degree or None, graph.senders)
 
 
 def _assemble(aggregators, s, sq, mx, mn, cnt):

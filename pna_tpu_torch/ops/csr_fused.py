@@ -11,15 +11,15 @@ edge-feature weight ``ke``), and the bank maps them to Z [N, A, F] without an
   messages, with the tie counts when a gradient is needed, then ``_assemble``
   as in the CSR bank; it saves u, v, ef, ke and node statistics, no message;
 * backward: ``node_fields`` folds d_agg into four node fields, K4
-  (``csr_pretrans_dmsg``) recomputes the messages and gives d_msg and
-  ``d_v``; d_msg is masked to the real edges, ``d_u`` is its ``index_add_``
-  over the senders into u's rows, and ``d_ke = ef^T d_msg``,
-  ``d_ef = d_msg ke^T`` are float32 matmuls (outside the kernels, as in the
+  (``csr_pretrans_dmsg``) recomputes the messages and gives d_msg (its pad
+  rows written as 0 by the kernel, so no mask follows) and ``d_v``; ``d_u``
+  is d_msg's ``index_add_`` over the senders into u's rows, and
+  ``d_ke = ef^T d_msg``, ``d_ef = d_msg ke^T`` are float32 matmuls (outside the kernels, as in the
   JAX package).  Each gradient is cast back to its input's type.
 
 ``u`` may have more rows than ``v`` (a ghost sender table).  The layout
 (``csr_bank.CSRLayout``) supplies the clamped row pointers, the counts, the
-edge mask and the int32 senders.
+int32 senders and the segment table the kernels walk.
 """
 
 from __future__ import annotations
@@ -40,30 +40,27 @@ class CSRFusedBank(torch.autograd.Function):
     Z [N, A, F] float32, aggregators in caller order."""
 
     @staticmethod
-    def forward(ctx, u, v, ef, ke, ptr, senders, cnt, edge_mask,
+    def forward(ctx, u, v, ef, ke, ptr, senders, cnt, segments,
                 aggregators):
         s, sq, mx, mn, tmx, tmn = csr_pretrans_sketch(
-            u, v, senders, ptr, ef, ke, with_ties=True)
+            u, v, senders, ptr, ef, ke, with_ties=True, segments=segments)
         out, (mean, var_raw, std) = _assemble(aggregators, s, sq, mx, mn, cnt)
         ctx.aggregators = aggregators
-        ctx.save_for_backward(u, v, ef, ke, ptr, senders, cnt, edge_mask,
-                              mean, var_raw, std, mx, mn, tmx, tmn)
+        ctx.segments = segments
+        ctx.save_for_backward(u, v, ef, ke, ptr, senders, cnt, mean, var_raw,
+                              std, mx, mn, tmx, tmn)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, d_agg):
-        (u, v, ef, ke, ptr, senders, cnt, edge_mask, mean, var_raw, std, mx,
-         mn, tmx, tmn) = ctx.saved_tensors
+        (u, v, ef, ke, ptr, senders, cnt, mean, var_raw, std, mx, mn, tmx,
+         tmn) = ctx.saved_tensors
         fields = node_fields(ctx.aggregators, d_agg, cnt, mean, var_raw, std,
                              tmx, tmn)
+        # the pad rows past ptr[N] come back as 0 (K4 writes them)
         d_msg, d_v = csr_pretrans_dmsg(u, v, senders, ptr, *fields, mx, mn,
-                                       ef, ke)
-        # K4 leaves rows past ptr[N] unwritten (torch.empty, possibly NaN):
-        # select, never multiply, since NaN * 0 is NaN
-        d_msg = torch.where(edge_mask[:, None], d_msg,
-                            torch.zeros((), dtype=d_msg.dtype,
-                                        device=d_msg.device))
+                                       ef, ke, segments=ctx.segments)
         d_u = torch.zeros((u.shape[0], d_msg.shape[1]), dtype=torch.float32,
                           device=d_msg.device).index_add_(0, senders, d_msg)
         d_ef = d_ke = None
@@ -94,8 +91,9 @@ def csr_fused_bank(u: torch.Tensor, v: torch.Tensor,
     inputs = [x for x in (u, v, ef, ke) if x is not None]
     if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
         return CSRFusedBank.apply(u, v, ef, ke, layout.ptr, layout.senders,
-                                  layout.cnt, layout.edge_mask,
+                                  layout.cnt, layout.segments,
                                   tuple(aggregators))
     s, sq, mx, mn = csr_pretrans_sketch(u, v, layout.senders, layout.ptr, ef,
-                                        ke, with_ties=False)
+                                        ke, with_ties=False,
+                                        segments=layout.segments)
     return _assemble(tuple(aggregators), s, sq, mx, mn, layout.cnt)[0]

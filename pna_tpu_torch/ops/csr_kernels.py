@@ -19,9 +19,16 @@ for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 The plain versions work on any device and are what the kernels are held
 against on the card.  The registry of the launch counts of all the port's
 kernels is ``csr_fused_kernels.launch_counts``.
+
+The segment table (``csr_segments``) is the work list of the fused kernels
+K3/K4: every node's range cut into segments of at most ``SEG`` edges, so that
+a hub node's range spreads over the card.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -37,6 +44,75 @@ def _row_segments(ptr: torch.Tensor, n_rows: int):
     ids = torch.searchsorted(ptr[1:], rows, right=True).clamp_(max=n - 1)
     valid = (rows >= ptr[0]) & (rows < ptr[n])
     return ids, valid
+
+
+# longest run of edges one thread of K3/K4 reduces (kSeg of
+# csrc/pretrans_msg.cuh).  32 keeps a hub's segments short enough to balance
+# over the card while a node of ordinary degree (ZINC: at most 4) stays whole
+SEG = 32
+
+
+@dataclass
+class CSRSegments:
+    """Every node's range ``[ptr[n], ptr[n+1])`` cut into segments of at most
+    ``SEG`` edges.  A node's segments are consecutive and in edge order; an
+    empty node has one empty segment; rows outside ``[ptr[0], ptr[N])`` are in
+    none.  Segment ``s`` spans ``[seg_ptr[s], seg_ptr[s+1])`` and belongs to
+    node ``seg_node[s]``.  A node with more than one segment is *split*: its
+    segments write partial results to the slots ``seg_slot[s]`` (-1 for the
+    segment of an unsplit node), and split node ``j`` (``split_node[j]``)
+    owns the slots ``[split_ptr[j], split_ptr[j+1])``, in segment order.
+    Where no node is split the table is the row pointers themselves:
+    ``seg_ptr is ptr`` and the other tensors are None.
+    """
+    seg_ptr: torch.Tensor                       # [S+1] int32
+    n_seg: int                                  # S >= N
+    n_nodes: int
+    n_split: int = 0                            # nodes with > 1 segment
+    n_part: int = 0                             # their segments in all
+    seg_node: Optional[torch.Tensor] = None     # [S] int32
+    seg_slot: Optional[torch.Tensor] = None     # [S] int32
+    split_node: Optional[torch.Tensor] = None   # [n_split] int32
+    split_ptr: Optional[torch.Tensor] = None    # [n_split+1] int32
+
+
+def csr_segments(ptr: torch.Tensor,
+                 max_in_degree: Optional[int] = None) -> CSRSegments:
+    """The segment table of the layout ``ptr`` [N+1] (int32, nondecreasing),
+    in plain torch on ``ptr``'s device.
+
+    ``max_in_degree`` is the largest in-degree where the caller knows it on
+    the host (``Graph.max_in_degree`` from collation): at most ``SEG`` means
+    no node is split, and the table is ``ptr`` itself at no cost.  Otherwise
+    the degrees are read from ``ptr``, which synchronises with the device
+    once (the table's size depends on the data)."""
+    n = ptr.numel() - 1
+    whole = CSRSegments(seg_ptr=ptr, n_seg=n, n_nodes=n)
+    if n < 1 or (max_in_degree is not None and max_in_degree <= SEG):
+        return whole
+    lo = ptr[:-1].long()
+    per_node = torch.clamp((ptr[1:].long() - lo + (SEG - 1)) // SEG, min=1)
+    split = per_node > 1
+    n_split, n_part = torch.stack(
+        [split.sum(), (per_node * split).sum()]).tolist()
+    if n_split == 0:
+        return whole
+    n_seg = n + n_part - n_split
+    first = torch.cumsum(per_node, 0) - per_node
+    nodes = torch.arange(n, device=ptr.device)
+    seg_node = torch.repeat_interleave(nodes, per_node, output_size=n_seg)
+    k = torch.arange(n_seg, device=ptr.device) - first[seg_node]
+    seg_ptr = torch.cat([lo[seg_node] + k * SEG, ptr[-1:].long()])
+    in_split = split[seg_node]
+    seg_slot = torch.where(in_split, torch.cumsum(in_split, 0) - 1,
+                           torch.full_like(seg_node, -1))
+    split_ptr = torch.zeros(n_split + 1, dtype=torch.long, device=ptr.device)
+    split_ptr[1:] = torch.cumsum(per_node[split], 0)
+    i32 = torch.int32
+    return CSRSegments(
+        seg_ptr=seg_ptr.to(i32), n_seg=n_seg, n_nodes=n, n_split=n_split,
+        n_part=n_part, seg_node=seg_node.to(i32), seg_slot=seg_slot.to(i32),
+        split_node=nodes[split].to(i32), split_ptr=split_ptr.to(i32))
 
 
 def csr_moment_sketch_plain(msg: torch.Tensor, ptr: torch.Tensor,

@@ -6,10 +6,18 @@ also runs on the GPU machine, where JAX is not installed:
 
 It also holds the layout cases the CPU tests of tests/test_torch_csr_kernels.py
 share, and the pretrans inputs of the fused kernels K3/K4 that
-tests/test_torch_csr_fused_kernels.py shares.  Tolerances: sum and sumsq (and
-K4's per-node sum d_v) rtol 1e-5, atol 1e-5 (the plain version adds with
-atomics, in another order); max, min and tie counts exactly equal (the plain
-versions form the same messages bit for bit); d_msg rtol 1e-5, atol 1e-6."""
+tests/test_torch_csr_fused_kernels.py shares.  Tolerances: K1's sum and
+sumsq rtol 1e-5, atol 1e-5, except the sum on the hub layout; that sum, K3's
+and K4's d_v within 1e-5 of the summed magnitudes plus 1e-5 (the plain
+version adds with atomics, in an order that changes from run to run, and a
+sum of 1,200 terms that cancels has no relative bound: the hub's read
+2.2e-5 off at one element in some runs and not in others); max, min and tie
+counts exactly equal (the plain versions form the same messages bit for
+bit); d_msg rtol 1e-5, atol 1e-6, on every row (K4 writes the rows outside
+every range as 0).
+
+``segment_case`` is the layout of whole and split nodes that
+tests/test_torch_csr_segments.py shares."""
 
 import numpy as np
 import pytest
@@ -67,7 +75,7 @@ def valid_rows(ptr, e):
     return (rows >= ptr[0]) & (rows < ptr[-1])
 
 
-def pretrans_inputs(ptr, e, f, seed, ghost=False):
+def pretrans_inputs(ptr, e, f, seed, ghost=False, fe=FE):
     """(u [Nu, f], v [N, f], senders [e] int32, ef [e, FE], ke [FE, f]) for a
     layout.  Every third edge that shares its receiver with the edge before it
     repeats that edge's sender and edge features, so their messages tie.
@@ -80,7 +88,7 @@ def pretrans_inputs(ptr, e, f, seed, ghost=False):
     snd = rng.randint(0, n, e).astype(np.int32)
     if ghost:
         snd[::3] = n + rng.randint(0, GHOST, len(snd[::3]))
-    ef = rng.randn(e, FE).astype(np.float32)
+    ef = rng.randn(e, fe).astype(np.float32)
     recv = np.searchsorted(ptr[1:], np.arange(e), side='right')
     for i in range(1, e, 3):
         if recv[i] == recv[i - 1]:
@@ -90,7 +98,34 @@ def pretrans_inputs(ptr, e, f, seed, ghost=False):
     ef[~valid] = 1e6
     return (rng.randn(n_u, f).astype(np.float32),
             rng.randn(n, f).astype(np.float32), snd, ef,
-            rng.randn(FE, f).astype(np.float32))
+            rng.randn(fe, f).astype(np.float32))
+
+
+def segment_case(seed=11, f=F, fe=FE):
+    """A layout of whole and split nodes with pad rows: in-degrees 0, 3,
+    SEG - 1, SEG, SEG + 1, 0, 3 SEG, 1, 2 SEG + 5, 0, a hub of 300, then
+    forty of 0..4, and 9 pad rows.  Either side of the first segment
+    boundary of the node of 3 SEG edges lie two edges with one sender (u row
+    +100) and one ef row, either side of its second boundary two with a u
+    row of -100: its max and min are each reached once in two segments, so
+    both tie counts are 2 at every feature.  Returns (u, v, snd, ef, ke, ptr,
+    tie node) as numpy arrays."""
+    seg = ck.SEG
+    rng = np.random.RandomState(seed)
+    deg = np.array([0, 3, seg - 1, seg, seg + 1, 0, 3 * seg, 1, 2 * seg + 5,
+                    0, 300] + list(rng.randint(0, 5, 40)))
+    n, tie_node = len(deg), 6
+    ptr = np.zeros(n + 1, np.int32)
+    ptr[1:] = np.cumsum(deg)
+    e = int(ptr[-1]) + 9
+    u, v, snd, ef, ke = pretrans_inputs(ptr, e, f, seed, fe=fe)
+    snd[snd < 2] = 2
+    u[0], u[1] = 100.0, -100.0
+    lo = ptr[tie_node]
+    for at, sender in ((lo + seg - 1, 0), (lo + 2 * seg - 1, 1)):
+        snd[at:at + 2] = sender
+        ef[at + 1] = ef[at]
+    return u, v, snd, ef, ke, ptr, tie_node
 
 
 def _need_card():
@@ -108,11 +143,13 @@ def test_cuda_kernels_match_plain(case):
     for with_ties in (False, True):
         got = ck.csr_moment_sketch(m, p, with_ties)
         want = ck.csr_moment_sketch_plain(m, p, with_ties)
-        for i, (g, w) in enumerate(zip(got, want)):
-            if i < 2:
-                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
-            else:
-                assert torch.equal(g, w)
+        if case == "hub":      # 1,200 terms that cancel: no relative bound
+            _sum_close(got[0], want[0], m, p)
+        else:
+            torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+        for g, w in zip(got[2:], want[2:]):
+            assert torch.equal(g, w)
     n = p.numel() - 1
     fields = [torch.randn(n, F, device='cuda') for _ in range(4)]
     fields += [got[2], got[3]]
@@ -185,9 +222,191 @@ def test_cuda_pretrans_kernels_match_plain(case, dtype):
         fields += [got[2], got[3]]
         d_k, dv_k = fk.csr_pretrans_dmsg(u, v, snd, p, *fields, *e_args)
         d_p, dv_p = fk.csr_pretrans_dmsg_plain(u, v, snd, p, *fields, *e_args)
-        torch.testing.assert_close(d_k[valid], d_p[valid], rtol=1e-5,
-                                   atol=1e-6)
+        torch.testing.assert_close(d_k, d_p, rtol=1e-5, atol=1e-6)
+        assert torch.all(d_k[~valid] == 0)       # written, not left over
         _sum_close(dv_k, dv_p, d_p, p)
     after = fk.launch_counts()
     assert after['csr_pretrans_sketch'] == before['csr_pretrans_sketch'] + 4
     assert after['csr_pretrans_dmsg'] == before['csr_pretrans_dmsg'] + 2
+
+
+def _segment_inputs(dtype, fe=FE):
+    u, v, snd, ef, ke, ptr, tie_node = segment_case(fe=fe)
+    u, v, snd, ef, ke, p = (torch.from_numpy(x).cuda()
+                            for x in (u, v, snd, ef, ke, ptr))
+    return (u, v.to(dtype), snd, p, ef.to(dtype), ke.to(dtype)), tie_node
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fe", [FE, 70])
+def test_cuda_pretrans_split_nodes_match_plain(dtype, fe):
+    """K3 and K4 on whole and split nodes (in-degrees 0, SEG, SEG + 1, a
+    hub), with ties across segment boundaries, at Fe = 5 and 70 (one and two
+    terms past the last whole group of four).  With the table given and
+    built by the wrapper."""
+    _need_card()
+    (u, v, snd, p, ef, ke), tie_node = _segment_inputs(dtype, fe)
+    segs = ck.csr_segments(p)
+    assert segs.n_split == 4 and segs.n_part == 2 + 3 + 3 + 10
+    m = fk.pretrans_messages_plain(u, v, snd, p, ef, ke)
+    for table in (segs, None):
+        for with_ties in (False, True):
+            got = fk.csr_pretrans_sketch(u, v, snd, p, ef, ke, with_ties,
+                                         table)
+            want = fk.csr_pretrans_sketch_plain(u, v, snd, p, ef, ke,
+                                                with_ties)
+            _sum_close(got[0], want[0], m, p)
+            _sum_close(got[1], want[1], m * m, p)
+            for g, w in zip(got[2:], want[2:]):
+                assert torch.equal(g, w)
+        assert torch.all(got[4][tie_node] == 2)
+        assert torch.all(got[5][tie_node] == 2)
+        fields = [torch.randn(p.numel() - 1, F, device='cuda')
+                  for _ in range(4)]
+        fields[2] /= got[4]
+        fields[3] /= got[5]
+        fields += [got[2], got[3]]
+        d_k, dv_k = fk.csr_pretrans_dmsg(u, v, snd, p, *fields, ef, ke, table)
+        d_p, dv_p = fk.csr_pretrans_dmsg_plain(u, v, snd, p, *fields, ef, ke)
+        torch.testing.assert_close(d_k, d_p, rtol=1e-5, atol=1e-6)
+        _sum_close(dv_k, dv_p, d_p, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_pretrans_same_bits_every_run(dtype):
+    """No atomics and a fixed merge order: two runs of K3 and K4 on split
+    nodes give the same bits."""
+    _need_card()
+    (u, v, snd, p, ef, ke), _ = _segment_inputs(dtype)
+    segs = ck.csr_segments(p)
+    runs = []
+    for _ in range(2):
+        k6 = fk.csr_pretrans_sketch(u, v, snd, p, ef, ke, True, segs)
+        fields = [torch.full_like(k6[0], c) for c in (0.3, -0.2)]
+        fields += [0.5 / k6[4], -0.7 / k6[5], k6[2], k6[3]]
+        runs.append(k6 + fk.csr_pretrans_dmsg(u, v, snd, p, *fields, ef, ke,
+                                              segs))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [F, 70, 128])
+def test_cuda_pretrans_walks_segments_of_any_length(dtype, f):
+    """A caller's table need not be cut at SEG: with the row pointers as the
+    table (no node split), nodes of 100, 300 and 3 SEG edges are longer than a
+    sub-tile (64 edges at F = 12 and 70, 36 at F = 128) and are walked in
+    several, each continuing the last; and a table cut at 80 edges has split
+    nodes whose partials are continued.  Ties straddle the sub-tiles' ends."""
+    _need_card()
+    *_, ptr, tie_node = segment_case()
+    deg = np.diff(ptr)
+    deg[1] = 100
+    ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    e = int(ptr[-1]) + 9
+    u, v, snd, ef, ke = pretrans_inputs(ptr, e, f, seed=11)
+    snd[snd < 2] = 2
+    u[0], u[1] = 100.0, -100.0
+    lo = ptr[tie_node]
+    # the max either side of edge 64 of the node of 3 SEG, the min either
+    # side of edge 36: where sub-tiles of 64 and of 36 edges end
+    for at, sender in ((lo + 63, 0), (lo + 35, 1)):
+        snd[at:at + 2] = sender
+        ef[at + 1] = ef[at]
+    u, v, snd, ef, ke, p = (torch.from_numpy(x).cuda()
+                            for x in (u, v, snd, ef, ke, ptr))
+    v, ef, ke = v.to(dtype), ef.to(dtype), ke.to(dtype)
+    n = p.numel() - 1
+    whole = ck.CSRSegments(seg_ptr=p, n_seg=n, n_nodes=n)
+    # the same table type cut at 80 edges: the hub of 300 has 4 segments,
+    # the nodes of 100 and 3 SEG two each
+    cuts, nodes, slots, split_node, split_ptr = [0], [], [], [], [0]
+    for i, d in enumerate(deg):
+        k = max(1, -(-int(d) // 80))
+        for j in range(k):
+            cuts.append(int(ptr[i]) + min(int(d), 80 * (j + 1)))
+            nodes.append(i)
+            slots.append(split_ptr[-1] + j if k > 1 else -1)
+        if k > 1:
+            split_node.append(i)
+            split_ptr.append(split_ptr[-1] + k)
+    i32 = dict(dtype=torch.int32, device='cuda')
+    coarse = ck.CSRSegments(
+        seg_ptr=torch.tensor(cuts, **i32), n_seg=len(nodes), n_nodes=n,
+        n_split=len(split_node), n_part=split_ptr[-1],
+        seg_node=torch.tensor(nodes, **i32),
+        seg_slot=torch.tensor(slots, **i32),
+        split_node=torch.tensor(split_node, **i32),
+        split_ptr=torch.tensor(split_ptr, **i32))
+    assert coarse.n_split == 3
+    m = fk.pretrans_messages_plain(u, v, snd, p, ef, ke)
+    for table in (whole, coarse):
+        for with_ties in (False, True):
+            got = fk.csr_pretrans_sketch(u, v, snd, p, ef, ke, with_ties,
+                                         table)
+            want = fk.csr_pretrans_sketch_plain(u, v, snd, p, ef, ke,
+                                                with_ties)
+            _sum_close(got[0], want[0], m, p)
+            _sum_close(got[1], want[1], m * m, p)
+            for g, w in zip(got[2:], want[2:]):
+                assert torch.equal(g, w)
+        assert torch.all(got[4][tie_node] == 2)
+        assert torch.all(got[5][tie_node] == 2)
+        fields = [torch.randn(n, f, device='cuda') for _ in range(4)]
+        fields[2] /= got[4]
+        fields[3] /= got[5]
+        fields += [got[2], got[3]]
+        d_k, dv_k = fk.csr_pretrans_dmsg(u, v, snd, p, *fields, ef, ke, table)
+        d_p, dv_p = fk.csr_pretrans_dmsg_plain(u, v, snd, p, *fields, ef, ke)
+        torch.testing.assert_close(d_k, d_p, rtol=1e-5, atol=1e-6)
+        _sum_close(dv_k, dv_p, d_p, p)
+
+
+@pytest.mark.cuda
+def test_cuda_pretrans_many_tiles_per_block():
+    """120,000 nodes are more segments than one round of resident blocks
+    takes: every block walks several tiles and sub-tiles, reusing its shared
+    memory, and two split nodes lie far apart."""
+    _need_card()
+    rng = np.random.RandomState(5)
+    deg = rng.randint(0, 5, 120_000)
+    deg[[7, 90_001]] = 500
+    ptr = np.zeros(len(deg) + 1, np.int32)
+    ptr[1:] = np.cumsum(deg)
+    u, v, snd, ef, ke = (torch.from_numpy(x).cuda() for x in pretrans_inputs(
+        ptr, int(ptr[-1]) + 40, F, seed=5))
+    p = torch.from_numpy(ptr).cuda()
+    segs = ck.csr_segments(p)
+    assert segs.n_split == 2
+    got = fk.csr_pretrans_sketch(u, v, snd, p, ef, ke, True, segs)
+    want = fk.csr_pretrans_sketch_plain(u, v, snd, p, ef, ke, True)
+    m = fk.pretrans_messages_plain(u, v, snd, p, ef, ke)
+    _sum_close(got[0], want[0], m, p)
+    for g, w in zip(got[2:], want[2:]):
+        assert torch.equal(g, w)
+    fields = [torch.randn(len(deg), F, device='cuda') for _ in range(4)]
+    fields += [got[2], got[3]]
+    d_k, dv_k = fk.csr_pretrans_dmsg(u, v, snd, p, *fields, ef, ke, segs)
+    d_p, dv_p = fk.csr_pretrans_dmsg_plain(u, v, snd, p, *fields, ef, ke)
+    torch.testing.assert_close(d_k, d_p, rtol=1e-5, atol=1e-6)
+    _sum_close(dv_k, dv_p, d_p, p)
+
+
+@pytest.mark.cuda
+def test_cuda_pretrans_refuses_what_shared_memory_cannot_hold():
+    """Fe = 400 at F = 70 is over a block's shared memory: the wrappers raise
+    before any launch; Fe = 388, the most that fits, still runs."""
+    _need_card()
+    u, v, snd, ef, ke, ptr, _ = segment_case(f=70, fe=400)
+    u, v, snd, ef, ke, p = (torch.from_numpy(x).cuda()
+                            for x in (u, v, snd, ef, ke, ptr))
+    with pytest.raises(ValueError, match="shared memory"):
+        fk.csr_pretrans_sketch(u, v, snd, p, ef, ke)
+    ef, ke = ef[:, :388].contiguous(), ke[:388].contiguous()
+    got = fk.csr_pretrans_sketch(u, v, snd, p, ef, ke, True)
+    want = fk.csr_pretrans_sketch_plain(u, v, snd, p, ef, ke, True)
+    for g, w in zip(got[2:], want[2:]):
+        assert torch.equal(g, w)
