@@ -11,12 +11,16 @@ Phases (any failure raises, so the script exits non-zero):
 3. kernels, each against its plain PyTorch version on the card, at the
    flagship step's shapes and on a hub-skewed graph, timed with CUDA events
    (L2 flushed before every launch) beside its HBM byte bound:
-   K1 ``csr_moment_sketch`` (with and without tie counts), K2 ``csr_dmsg``,
+   K1 ``csr_moment_sketch`` (with and without tie counts) and K2
+   ``csr_dmsg`` (every row, pad rows 0; also on whole and split nodes with
+   ties across segment boundaries at F = 1, 33, 70, 75, 128 and 300, with
+   the cut table and with the row pointers as an uncut one; beside K1 the
+   time of the nearest composition of ``torch.segment_reduce`` calls),
    K3 ``csr_pretrans_sketch`` (with and without ties and edge features, on
    a ghost sender table, with bfloat16 v/ef/ke, on a mixed case of whole
    and split nodes with ties across segment boundaries, with Fe = 70, and
    with the row pointers as an uncut segment table) and K4
-   ``csr_pretrans_dmsg``; two runs of K3 and K4 on the hub must give the
+   ``csr_pretrans_dmsg``; two runs of each kernel on the hub must give the
    same bits;
 4. train, the flagship ZINC step (PNANetMolecules, L=4, hidden 70, out 60,
    edge_dim 50, towers 5, 1024 synthetic graphs) on one set of weights, in
@@ -40,7 +44,6 @@ prints no result.
 import json
 import math
 import statistics
-import subprocess
 import sys
 import time
 
@@ -53,6 +56,8 @@ from pna_tpu_torch.ops import build, csr_kernels
 from pna_tpu_torch.ops import csr_fused_kernels as fk
 from pna_tpu_torch.ops.csr_bank import csr_layout
 from pna_tpu_torch.ops.csr_kernels import SEG, CSRSegments, csr_segments
+from pna_tpu_torch.ops.timing import (card_line, flush_buffer, hub_case,
+                                      make_messages, time_cuda)
 from pna_tpu_torch.train.step import loss_and_grads, make_optimizer, train_step
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and float32
@@ -71,7 +76,6 @@ FE = FLAGSHIP['edge_dim']
 TRAIN_STEPS = 12
 TIMED_FROM = 2               # steps before this one are warm-up
 GHOST = 13                   # extra sender rows of the ghost-table case
-SLEEP_CYCLES = 700_000       # about 0.4 ms of the card at 1.7 GHz
 
 # the kernels of each backend; the other backend's must not launch
 BACKEND_KERNELS = {'csr': ('csr_moment_sketch', 'csr_dmsg'),
@@ -114,37 +118,6 @@ def log(*args):
     print(*args, flush=True)
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-
-
-def time_cuda(fn, flush, reps=20):
-    """Median ms of ``fn`` on the card, CUDA events around each launch, the
-    L2 cache flushed before each one (a kernel of the step finds its inputs
-    cold).  Before the first event the card is kept busy for about 0.4 ms
-    (``torch.cuda._sleep``), so that the host has queued ``fn`` by the time
-    the card reaches it: without that a wrapper whose host work outlasts the
-    flush would be timed, not its kernel."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-        torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
 def bound_ms(bytes_moved, ops):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -153,24 +126,6 @@ def bound_ms(bytes_moved, ops):
 
 def nbytes(x):
     return 0 if x is None else x.numel() * x.element_size()
-
-
-def hub_case(dev, gen):
-    """N > 128 nodes, one node owning a fifth of the edges."""
-    n, e = 4096, 65536
-    recv = torch.randint(0, n, (e,), generator=gen)
-    recv[: e // 5] = 17
-    recv, _ = torch.sort(recv)
-    ptr = torch.zeros(n + 1, dtype=torch.int32)
-    ptr[1:] = torch.searchsorted(recv, torch.arange(1, n + 1))
-    return ptr.to(dev), e
-
-
-def make_messages(n_rows, n_feat, dev, gen):
-    msg = torch.randn(n_rows, n_feat, generator=gen).to(dev)
-    dup = torch.arange(1, n_rows, 5, device=dev)
-    msg[dup] = msg[dup - 1]          # neighbouring equal rows: tie material
-    return msg.contiguous()
 
 
 def check_sketch(kern, plain, msg, ptr, what="K1"):
@@ -193,76 +148,174 @@ def check_sketch(kern, plain, msg, ptr, what="K1"):
     return err
 
 
+def sketch_messages(ptr, n_rows, f, tie_node, dev, gen):
+    """Messages [n_rows, f] over ``segment_layout``: every other
+    column drawn from five levels (ties everywhere), and +100 on either side
+    of the first segment boundary of ``tie_node``, -100 on either side of its
+    second: both its tie counts are 2 at every feature."""
+    msg = torch.randn(n_rows, f, generator=gen)
+    msg[:, ::2] = torch.randint(-2, 3, msg[:, ::2].shape,
+                                generator=gen).float()
+    lo = int(ptr[tie_node])
+    msg[lo + SEG - 1:lo + SEG + 1] = 100.0
+    msg[lo + 2 * SEG - 1:lo + 2 * SEG + 1] = -100.0
+    return msg.to(dev)
+
+
+def check_csr(msg, ptr, segs, gen, what):
+    """K1 with and without ties and K2 (every row) against their plain
+    versions on one set of inputs; returns (K1 error, K2 error, K2's
+    arguments, K1's six outputs)."""
+    plain6 = csr_kernels.csr_moment_sketch_plain(msg, ptr, True)
+    kern6 = csr_kernels.csr_moment_sketch(msg, ptr, True, segments=segs)
+    kern4 = csr_kernels.csr_moment_sketch(msg, ptr, False, segments=segs)
+    torch.cuda.synchronize()
+    e1 = max(check_sketch(kern6, plain6, msg, ptr),
+             check_sketch(kern4, plain6[:4], msg, ptr))
+    n, f = ptr.numel() - 1, msg.shape[1]
+    fields = [torch.randn(n, f, generator=gen).to(msg.device)
+              for _ in range(4)]
+    fields[2] /= kern6[4]
+    fields[3] /= kern6[5]
+    args = (msg, ptr, *fields, kern6[2], kern6[3])
+    d_k = csr_kernels.csr_dmsg(*args, segments=segs)
+    d_p = csr_kernels.csr_dmsg_plain(*args)
+    torch.cuda.synchronize()
+    e2 = float((d_k - d_p).abs().max())
+    if not torch.allclose(d_k, d_p, rtol=DMSG_RTOL, atol=DMSG_ATOL):
+        raise AssertionError(f"K2 disagrees ({what}), max err {e2}")
+    _, valid = csr_kernels._row_segments(ptr, msg.shape[0])
+    if not bool((d_k[~valid] == 0).all()):
+        raise AssertionError(f"K2 ({what}): a row of no node is not 0")
+    return e1, e2, args, kern6
+
+
+def segment_reduce_ms(msg, ptr, flush):
+    """The nearest composition of PyTorch calls to K1 without ties: four
+    ``torch.segment_reduce`` calls (sum, sum of squares, max, min) over the
+    nodes' lengths.  Not one library call, and not K1's function (no tie
+    counts, another value for an empty node): timed for scale only."""
+    rows = msg[int(ptr[0]):int(ptr[-1])]
+    lengths = (ptr[1:] - ptr[:-1]).long()
+
+    def run():
+        return (torch.segment_reduce(rows, "sum", lengths=lengths,
+                                     unsafe=True),
+                torch.segment_reduce(rows * rows, "sum", lengths=lengths,
+                                     unsafe=True),
+                torch.segment_reduce(rows, "max", lengths=lengths,
+                                     unsafe=True),
+                torch.segment_reduce(rows, "min", lengths=lengths,
+                                     unsafe=True))
+    got = run()
+    want = csr_kernels.csr_moment_sketch_plain(msg, ptr)
+    if not torch.allclose(got[0], want[0], rtol=1e-4, atol=1e-4):
+        raise AssertionError("segment_reduce composition: another sum")
+    return time_cuda(run, flush)
+
+
 def kernel_phase(graph, dev, flush):
-    """K1 and K2 on random messages over the flagship layout and the hub."""
+    """K1 and K2 on random messages over the flagship layout and the hub,
+    and on whole and split nodes at several widths."""
     gen = torch.Generator().manual_seed(1)
-    layout = csr_layout(graph.edge_ptr.to(dev), graph.edge_mask.to(dev))
+    layout = csr_layout(graph.edge_ptr.to(dev), graph.edge_mask.to(dev),
+                        max_in_degree=graph.max_in_degree)
     f = FLAGSHIP['hidden_dim']       # message width T * Ft of every layer
+    hub_ptr, hub_rows = hub_case(dev, gen)
     cases = {
-        "slice": (layout.ptr, graph.n_edge_pad),
-        "hub": hub_case(dev, gen),
+        "slice": (layout.ptr, graph.n_edge_pad, layout.segments),
+        "hub": (hub_ptr, hub_rows, csr_segments(hub_ptr)),
     }
     res = {"csr_moment_sketch": {"err": 0.0}, "csr_dmsg": {"err": 0.0}}
-    for name, (ptr, n_rows) in cases.items():
+
+    def record(e1, e2):
+        res["csr_moment_sketch"]["err"] = max(res["csr_moment_sketch"]["err"],
+                                              e1)
+        res["csr_dmsg"]["err"] = max(res["csr_dmsg"]["err"], e2)
+
+    for name, (ptr, n_rows, segs) in cases.items():
         n = ptr.numel() - 1
         msg = make_messages(n_rows, f, dev, gen)
         rows = int(ptr[-1] - ptr[0])
-        plain6 = csr_kernels.csr_moment_sketch_plain(msg, ptr, True)
-        kern6 = csr_kernels.csr_moment_sketch(msg, ptr, True)
-        kern4 = csr_kernels.csr_moment_sketch(msg, ptr, False)
-        torch.cuda.synchronize()
-        e1 = max(check_sketch(kern6, plain6, msg, ptr),
-                 check_sketch(kern4, plain6[:4], msg, ptr))
-
-        s, sq, mx, mn, tmx, tmn = kern6
-        fields = [torch.randn(n, f, generator=gen).to(dev) for _ in range(4)]
-        fields[2] /= tmx
-        fields[3] /= tmn
-        args = (msg, ptr, *fields, mx, mn)
-        d_k = csr_kernels.csr_dmsg(*args)
-        d_p = csr_kernels.csr_dmsg_plain(*args)
-        torch.cuda.synchronize()
-        _, valid = csr_kernels._row_segments(ptr, n_rows)
-        d_k, d_p = d_k[valid], d_p[valid]          # other rows: unwritten
-        e2 = float((d_k - d_p).abs().max())
-        if not torch.allclose(d_k, d_p, rtol=DMSG_RTOL, atol=DMSG_ATOL):
-            raise AssertionError(f"K2 disagrees ({name}), max err {e2}")
+        e1, e2, args, kern6 = check_csr(msg, ptr, segs, gen, name)
+        record(e1, e2)
+        if name == "hub":       # no atomics, a fixed order: the same bits
+            again = (csr_kernels.csr_moment_sketch(msg, ptr, True,
+                                                   segments=segs)
+                     + (csr_kernels.csr_dmsg(*args, segments=segs),))
+            first = kern6 + (csr_kernels.csr_dmsg(*args, segments=segs),)
+            torch.cuda.synchronize()
+            for x, y in zip(first, again):
+                if not torch.equal(x, y):
+                    raise AssertionError("hub: two runs of K1/K2 differ")
 
         t = {
             "k1": time_cuda(lambda: csr_kernels.csr_moment_sketch(
-                msg, ptr, True), flush),
+                msg, ptr, True, segments=segs), flush),
             "k1_no_ties": time_cuda(lambda: csr_kernels.csr_moment_sketch(
-                msg, ptr, False), flush),
+                msg, ptr, False, segments=segs), flush),
             "k1_plain": time_cuda(lambda: csr_kernels.csr_moment_sketch_plain(
                 msg, ptr, True), flush),
-            "k2": time_cuda(lambda: csr_kernels.csr_dmsg(*args), flush),
+            "k2": time_cuda(lambda: csr_kernels.csr_dmsg(
+                *args, segments=segs), flush),
             "k2_plain": time_cuda(lambda: csr_kernels.csr_dmsg_plain(*args),
                                   flush),
         }
-        k1_bound = bound_ms(rows * f * 4 + (n + 1) * 4 + 6 * n * f * 4,
-                            7 * rows * f)
-        k1_bound4 = bound_ms(rows * f * 4 + (n + 1) * 4 + 4 * n * f * 4,
-                             5 * rows * f)
-        k2_bound = bound_ms(2 * rows * f * 4 + (n + 1) * 4 + 6 * n * f * 4,
-                            6 * rows * f)
-        log(f"kernels[{name}] N={n} E={n_rows} rows={rows} F={f}: "
+        # K1 reads the real rows and the table's pointers; K2 reads the real
+        # rows, the row-to-node array and the node fields and writes every
+        # row of d_msg, the rows of no node as 0
+        k1_bound = bound_ms(rows * f * 4 + (segs.n_seg + 1) * 4
+                            + 6 * n * f * 4, 7 * rows * f)
+        k1_bound4 = bound_ms(rows * f * 4 + (segs.n_seg + 1) * 4
+                             + 4 * n * f * 4, 5 * rows * f)
+        k2_bound = bound_ms(rows * f * 4 + n_rows * 4 + 6 * n * f * 4
+                            + n_rows * f * 4, 6 * rows * f)
+        log(f"kernels[{name}] N={n} E={n_rows} rows={rows} F={f}, "
+            f"{segs.n_seg} segments, {segs.n_split} split nodes: "
             f"K1 ties {t['k1']:.4f} ms (plain {t['k1_plain']:.4f}, bound "
             f"{k1_bound[0]:.4f}), K1 no ties {t['k1_no_ties']:.4f} ms (bound "
             f"{k1_bound4[0]:.4f}), K2 {t['k2']:.4f} ms (plain "
             f"{t['k2_plain']:.4f}, bound {k2_bound[0]:.4f}); max err K1 "
-            f"{e1:.3g} K2 {e2:.3g}")
-        res["csr_moment_sketch"]["err"] = max(res["csr_moment_sketch"]["err"],
-                                              e1)
-        res["csr_dmsg"]["err"] = max(res["csr_dmsg"]["err"], e2)
+            f"{e1:.3g} K2 {e2:.3g}"
+            + ("; two runs equal" if name == "hub" else ""))
         if name == "slice":
+            comp = segment_reduce_ms(msg, ptr, flush)
+            log(f"kernels[slice] four torch.segment_reduce calls (sum, sum "
+                f"of squares, max, min; no tie counts; not one library "
+                f"call): {comp:.4f} ms")
             res["csr_moment_sketch"].update(
                 ms=t["k1"], plain_ms=t["k1_plain"], bound=k1_bound,
-                ms_no_ties=t["k1_no_ties"], bound_no_ties_ms=k1_bound4[0])
+                ms_no_ties=t["k1_no_ties"], bound_no_ties_ms=k1_bound4[0],
+                segment_reduce_composition_ms=comp)
             res["csr_dmsg"].update(ms=t["k2"], plain_ms=t["k2_plain"],
                                    bound=k2_bound)
         else:
-            res["csr_moment_sketch"]["hub_ms"] = t["k1"]
-            res["csr_dmsg"]["hub_ms"] = t["k2"]
+            res["csr_moment_sketch"].update(hub_ms=t["k1"],
+                                            hub_bound_ms=k1_bound[0])
+            res["csr_dmsg"].update(hub_ms=t["k2"], hub_bound_ms=k2_bound[0])
+
+    # whole and split nodes, ties across segment boundaries, 12 rows of no
+    # node, at widths whose rows start on 4-, 8- and 16-byte boundaries;
+    # with the cut table and with the row pointers as the table (no node
+    # split, ranges longer than a staged span walked in several)
+    mptr, n_rows, tie_node = segment_layout(gen)
+    mptr = mptr.to(dev)
+    n = mptr.numel() - 1
+    tables = {"cut": csr_segments(mptr),
+              "uncut": CSRSegments(seg_ptr=mptr, n_seg=n, n_nodes=n)}
+    for width in (1, 33, 70, 75, 128, 300):
+        msg = sketch_messages(mptr, n_rows, width, tie_node, dev, gen)
+        for name, segs in tables.items():
+            e1, e2, _, k6 = check_csr(msg, mptr, segs, gen,
+                                      f"segments F={width} {name}")
+            record(e1, e2)
+            if not (bool((k6[4][tie_node] == 2).all())
+                    and bool((k6[5][tie_node] == 2).all())):
+                raise AssertionError(
+                    f"segment case (F={width}, {name} table): the ties "
+                    "across segment boundaries were not merged")
+        log(f"kernels[segments] K1/K2 F={width}: cut and uncut table agree "
+            f"with plain; ties across boundaries merged")
     return res
 
 
@@ -333,23 +386,29 @@ def check_pretrans(u, v, snd, ptr, ef, ke, segs, gen):
     return e3, e4, args + (segs,), kern6
 
 
-def segment_case(dev, gen):
+def segment_layout(gen):
     """A layout of whole and split nodes: 3,000 nodes of in-degree 0..4,
     then nodes of SEG - 1, SEG, SEG + 1, 0, 3 SEG, 0, 2 SEG + 5 and 1,000
-    edges, then 12 pad rows.  The node of 3 SEG edges has, either side of its
-    first segment boundary, two edges with one sender (a u row of +100) and
-    one ef row, and either side of its second boundary two with a u row of
-    -100: its max and its min are each reached once in two segments, so both
-    tie counts must come out as 2 at every feature.  Returns (u, v, snd,
-    ptr, ef, ke, tie node, first row of each tied pair)."""
-    f = FLAGSHIP['hidden_dim']
+    edges, then 12 rows of no node.  Returns (ptr on the CPU, rows, the node
+    of 3 SEG edges)."""
     deg = torch.cat([torch.randint(0, 5, (3000,), generator=gen),
                      torch.tensor([SEG - 1, SEG, SEG + 1, 0, 3 * SEG, 0,
                                    2 * SEG + 5, 1000])])
-    n, tie_node = deg.numel(), 3004
-    ptr = torch.zeros(n + 1, dtype=torch.int32)
+    ptr = torch.zeros(deg.numel() + 1, dtype=torch.int32)
     ptr[1:] = torch.cumsum(deg, 0)
-    e = int(ptr[-1]) + 12
+    return ptr, int(ptr[-1]) + 12, 3004
+
+
+def segment_case(dev, gen):
+    """Pretrans inputs over ``segment_layout``.  The node of 3 SEG edges has,
+    either side of its first segment boundary, two edges with one sender (a
+    u row of +100) and one ef row, and either side of its second boundary
+    two with a u row of -100: its max and its min are each reached once in
+    two segments, so both tie counts must come out as 2 at every feature.
+    Returns (u, v, snd, ptr, ef, ke, tie node, first row of each tied
+    pair)."""
+    ptr, e, tie_node = segment_layout(gen)
+    n = ptr.numel() - 1
     snd = torch.randint(2, n, (e,), generator=gen, dtype=torch.int32)
     bond = torch.randint(0, 4, (e,), generator=gen)
     lo = int(ptr[tie_node])
@@ -665,7 +724,7 @@ def profile_steps(model, opt, graph, labels, step_ms, steps=3):
     log("  profile: host ops by self CPU time per step (profiled, so slower "
         "than the timed steps): " + "; ".join(
             f"{key} {ms:.3f} ms x{count}" for key, ms, count in host[:8]))
-    # "<name>_" also takes K3/K4's merge kernels (none on an unsplit batch)
+    # the merge kernels of split nodes never launch on an unsplit batch
     ours = {k: sum(r[1] for r in rows if f"{k}_" in r[0]) for k in SOURCES}
     log("  profile: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in
                                   ours.items()) + " per step")
@@ -719,7 +778,7 @@ def main():
 
     ds = ZincDataset.synthetic(n_train=1024, n_val=1, n_test=1, seed=0)
     graph, labels = collate_records(ds.train, with_snorm=True)
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    flush = flush_buffer(dev)
     k = kernel_phase(graph, dev, flush)
     k.update(fused_kernel_phase(graph, dev, flush))
     del flush

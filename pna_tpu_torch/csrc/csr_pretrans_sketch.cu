@@ -55,97 +55,18 @@
 //     run of the partials in order, then one row folds the rows in order:
 //     sums add; a larger max (smaller min) replaces value and tie count, an
 //     equal one adds its count.  One writer per element, no atomics, a fixed
-//     order: the same bits every run.
+//     order: the same bits every run.  The sketch's rules, the store and the
+//     merge kernel are in segment_sketch.cuh, which K1 shares.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "pretrans_msg.cuh"
+#include "segment_sketch.cuh"
 
 namespace {
 
-struct SketchOut {
-  float* s;
-  float* sq;
-  float* mx;
-  float* mn;
-  float* tmx;    // null without ties
-  float* tmn;
-  float* part;   // [n_part, 6, F] partials of split nodes, or null
-  int n_feat;
-  int n_part;
-};
-
-// One more message into the running sketch, K1's rule.
-template <bool kTies>
-__device__ __forceinline__ void sketch_add(float m, float& s, float& sq,
-                                           float& mx, float& mn, float& tmx,
-                                           float& tmn) {
-  s = __fadd_rn(s, m);
-  sq = __fadd_rn(sq, __fmul_rn(m, m));
-  if (kTies) {
-    if (m > mx) {
-      mx = m;
-      tmx = 1.f;
-    } else if (m == mx) {
-      tmx += 1.f;
-    }
-    if (m < mn) {
-      mn = m;
-      tmn = 1.f;
-    } else if (m == mn) {
-      tmn += 1.f;
-    }
-  } else {
-    mx = fmaxf(mx, m);
-    mn = fminf(mn, m);
-  }
-}
-
-// A partial sketch merged into a running one, in order.
-template <bool kTies>
-__device__ __forceinline__ void sketch_merge(float ps, float psq, float pmx,
-                                             float pmn, float ptmx,
-                                             float ptmn, float& s, float& sq,
-                                             float& mx, float& mn, float& tmx,
-                                             float& tmn) {
-  s = __fadd_rn(s, ps);
-  sq = __fadd_rn(sq, psq);
-  if (kTies) {
-    if (pmx > mx) {
-      mx = pmx;
-      tmx = ptmx;
-    } else if (pmx == mx) {
-      tmx += ptmx;
-    }
-    if (pmn < mn) {
-      mn = pmn;
-      tmn = ptmn;
-    } else if (pmn == mn) {
-      tmn += ptmn;
-    }
-  } else {
-    mx = fmaxf(mx, pmx);
-    mn = fminf(mn, pmn);
-  }
-}
-
-// The sketch (s .. tmn) of the later part of a segment, folded into the
-// sketch (ps .. ptmn) of its earlier part; the result is left in s .. tmn.
-template <bool kTies>
-__device__ __forceinline__ void sketch_resume(float ps, float psq, float pmx,
-                                              float pmn, float ptmx,
-                                              float ptmn, float& s, float& sq,
-                                              float& mx, float& mn, float& tmx,
-                                              float& tmn) {
-  sketch_merge<kTies>(s, sq, mx, mn, tmx, tmn, ps, psq, pmx, pmn, ptmx, ptmn);
-  s = ps;
-  sq = psq;
-  mx = pmx;
-  mn = pmn;
-  tmx = ptmx;
-  tmn = ptmn;
-}
+using pna::SketchOut;
 
 template <bool kTies>
 struct SketchPhase2 {
@@ -160,58 +81,12 @@ struct SketchPhase2 {
     for (int ls = t.sa + t.g; ls < t.sb; ls += t.groups) {
       const int lo = pna::clampi(t.seg_ptr_s[ls] - t.e0, 0, t.ne);
       const int hi = pna::clampi(t.seg_ptr_s[ls + 1] - t.e0, 0, t.ne);
-      float s = 0.f, sq = 0.f, mx = 0.f, mn = 0.f, tmx = 1.f, tmn = 1.f;
-      if (hi > lo) {
-        const float* col = t.m_s + t.fl;
-        const float m0 = col[lo * t.ms];
-        s = m0;
-        sq = __fmul_rn(m0, m0);
-        mx = m0;
-        mn = m0;
-        for (int le = lo + 1; le < hi; ++le) {
-          sketch_add<kTies>(col[le * t.ms], s, sq, mx, mn, tmx, tmn);
-        }
-      }
-      const int slot = t.slot_s[ls];
-      const bool resume = t.cont && ls == t.sa;   // an earlier part exists
-      if (slot < 0 || o.part == nullptr) {   // the node's only segment
-        const long long at =
-            static_cast<long long>(t.node_s[ls]) * o.n_feat + t.f;
-        if (resume) {
-          sketch_resume<kTies>(o.s[at], o.sq[at], o.mx[at], o.mn[at],
-                               kTies ? o.tmx[at] : 1.f,
-                               kTies ? o.tmn[at] : 1.f, s, sq, mx, mn, tmx,
-                               tmn);
-        }
-        o.s[at] = s;
-        o.sq[at] = sq;
-        o.mx[at] = mx;
-        o.mn[at] = mn;
-        if (kTies) {
-          o.tmx[at] = tmx;
-          o.tmn[at] = tmn;
-        }
-      } else {
-        float* q = o.part +
-                   static_cast<long long>(min(slot, o.n_part - 1)) * 6 *
-                       o.n_feat +
-                   t.f;
-        if (resume) {
-          sketch_resume<kTies>(q[0], q[o.n_feat], q[2 * o.n_feat],
-                               q[3 * o.n_feat],
-                               kTies ? q[4 * o.n_feat] : 1.f,
-                               kTies ? q[5 * o.n_feat] : 1.f, s, sq, mx, mn,
-                               tmx, tmn);
-        }
-        q[0] = s;
-        q[o.n_feat] = sq;
-        q[2 * o.n_feat] = mx;
-        q[3 * o.n_feat] = mn;
-        if (kTies) {
-          q[4 * o.n_feat] = tmx;
-          q[5 * o.n_feat] = tmn;
-        }
-      }
+      float s, sq, mx, mn, tmx, tmn;
+      pna::sketch_column<kTies>(t.m_s + t.fl, t.ms, lo, hi, s, sq, mx, mn,
+                                tmx, tmn);
+      // with cont, segment sa has an earlier part
+      pna::sketch_store<kTies>(o, t.node_s[ls], t.slot_s[ls], t.f,
+                               t.cont && ls == t.sa, s, sq, mx, mn, tmx, tmn);
     }
   }
 };
@@ -221,82 +96,6 @@ __global__ void __launch_bounds__(pna::kMaxThreads, pna::kBlocksPerSM)
 csr_pretrans_sketch_kernel(const pna::PretransArgs a, const SketchOut o) {
   const SketchPhase2<kTies> phase2{o};
   pna::pretrans_walk<T, kEdgeFeatures>(a, phase2);
-}
-
-constexpr int kMergeThreads = 1024;
-
-// One block per split node j.  Threads are (row c, feature): row c folds its
-// contiguous share of the partials [split_ptr[j], split_ptr[j + 1]) in
-// order, then row 0 folds the rows' results in order.  The order depends
-// only on the sizes, so every run gives the same bits.
-template <bool kTies>
-__global__ void __launch_bounds__(kMergeThreads)
-csr_pretrans_sketch_merge_kernel(const int* __restrict__ split_node,
-                                 const int* __restrict__ split_ptr,
-                                 int n_part, int n_nodes, const SketchOut o) {
-  __shared__ float row_s[6][kMergeThreads];
-  const int j = blockIdx.x;
-  const int fw = min(o.n_feat, kMergeThreads);
-  const int rows = kMergeThreads / fw;
-  const int c = threadIdx.x / fw;
-  const int fl = threadIdx.x - c * fw;
-  const int node = pna::clampi(split_node[j], 0, n_nodes - 1);
-  const int p0 = pna::clampi(split_ptr[j], 0, n_part);
-  const int p1 = pna::clampi(split_ptr[j + 1], p0, n_part);
-  const int share = (p1 - p0 + rows - 1) / rows;
-  const int lo = min(p0 + c * share, p1);
-  const int hi = min(lo + share, p1);
-  const long long stride = 6LL * o.n_feat;
-  const int nf = o.n_feat;
-  for (int f0 = 0; f0 < nf; f0 += fw) {
-    const int f = f0 + fl;
-    const bool live = c < rows && f < nf;
-    float s = 0.f, sq = 0.f, mx = 0.f, mn = 0.f, tmx = 1.f, tmn = 1.f;
-    if (live && hi > lo) {
-      const float* q = o.part + lo * stride + f;
-      s = q[0];
-      sq = q[nf];
-      mx = q[2 * nf];
-      mn = q[3 * nf];
-      if (kTies) {
-        tmx = q[4 * nf];
-        tmn = q[5 * nf];
-      }
-#pragma unroll 4
-      for (int p = lo + 1; p < hi; ++p) {
-        q += stride;
-        sketch_merge<kTies>(q[0], q[nf], q[2 * nf], q[3 * nf],
-                            kTies ? q[4 * nf] : 1.f, kTies ? q[5 * nf] : 1.f,
-                            s, sq, mx, mn, tmx, tmn);
-      }
-    }
-    __syncthreads();   // the previous feature chunk's fold has read row_s
-    row_s[0][threadIdx.x] = s;
-    row_s[1][threadIdx.x] = sq;
-    row_s[2][threadIdx.x] = mx;
-    row_s[3][threadIdx.x] = mn;
-    row_s[4][threadIdx.x] = tmx;
-    row_s[5][threadIdx.x] = tmn;
-    __syncthreads();
-    if (c == 0 && f < nf) {
-      // rows are filled in order, so row r is empty iff it starts at p1
-      for (int r = 1; r < rows && p0 + r * share < p1; ++r) {
-        const int at = r * fw + fl;
-        sketch_merge<kTies>(row_s[0][at], row_s[1][at], row_s[2][at],
-                            row_s[3][at], row_s[4][at], row_s[5][at], s, sq,
-                            mx, mn, tmx, tmn);
-      }
-      const long long at = static_cast<long long>(node) * nf + f;
-      o.s[at] = s;
-      o.sq[at] = sq;
-      o.mx[at] = mx;
-      o.mn[at] = mn;
-      if (kTies) {
-        o.tmx[at] = tmx;
-        o.tmn[at] = tmn;
-      }
-    }
-  }
 }
 
 template <typename T, bool kEdgeFeatures>
@@ -371,13 +170,6 @@ extern "C" int pna_csr_pretrans_sketch(
             : launch<float>(a, l, o, with_ties != 0, st);
   if (rc != cudaSuccess || n_split <= 0) return static_cast<int>(rc);
 
-  const dim3 grid(static_cast<unsigned>(n_split));
-  if (with_ties) {
-    csr_pretrans_sketch_merge_kernel<true><<<grid, kMergeThreads, 0, st>>>(
-        split_node, split_ptr, n_part, n_nodes, o);
-  } else {
-    csr_pretrans_sketch_merge_kernel<false><<<grid, kMergeThreads, 0, st>>>(
-        split_node, split_ptr, n_part, n_nodes, o);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(pna::launch_sketch_merge(
+      split_node, split_ptr, n_split, n_nodes, o, with_ties != 0, st));
 }

@@ -67,9 +67,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "csr_common.cuh"
+
 namespace pna {
 
-constexpr int kWarp = 32;
 constexpr int kMaxThreads = 288;     // 16 edge groups x 18 feature quads
 constexpr int kBlocksPerSM = 3;      // at most 75 registers a thread
 constexpr int kEdgesPerThread = 4;   // register tile: 4 edges x 4 features
@@ -77,8 +78,6 @@ constexpr int kMaxEdgeGroups = 16;   // sub-tile of at most 64 edges
 constexpr int kMaxTileSegs = 128;    // segments of one tile
 constexpr int kMaxFeatChunk = 128;   // features of one block (blockIdx.y)
 constexpr int kSeg = 32;             // longest segment: csr_kernels.SEG
-// dynamic shared memory of a block: 227 KB less the walk's static tables
-constexpr size_t kSmemLimit = 225 * 1024;
 // the narrowest sub-tile still holds a whole segment
 static_assert(kMaxThreads / (kMaxFeatChunk / 4) * kEdgesPerThread >= kSeg,
               "a sub-tile must hold a segment");
@@ -86,10 +85,6 @@ static_assert(kMaxThreads / (kMaxFeatChunk / 4) * kEdgesPerThread >= kSeg,
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return min(max(x, lo), hi);
 }
 
 struct PretransArgs {
@@ -444,19 +439,11 @@ inline cudaError_t pretrans_geometry(PretransArgs& a, PretransLaunch& l) {
   return cudaSuccess;
 }
 
-// Launches `kernel` with the geometry `l`, allowing it the dynamic shared
-// memory it asks for.
+// Launches `kernel` with the geometry `l`.
 template <typename Kernel, typename... Args>
 cudaError_t pretrans_launch(Kernel kernel, const PretransLaunch& l,
                             cudaStream_t st, Args... args) {
-  if (l.smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(l.smem));
-    if (rc != cudaSuccess) return rc;
-  }
-  kernel<<<l.grid, l.block, l.smem, st>>>(args...);
-  return cudaGetLastError();
+  return launch_dynamic(kernel, l.grid, l.block, l.smem, st, args...);
 }
 
 }  // namespace pna

@@ -107,9 +107,12 @@ def load() -> ctypes.CDLL:
     argument and return types declared."""
     lib = ctypes.CDLL(build())
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pna_csr_moment_sketch.argtypes = [p, p, i, i, i, p, p, p, p, p, p,
-                                          i, p]
+    # msg and 5 table pointers, 6 sizes (n_seg .. n_feat), 6 outputs and the
+    # partials, the ties flag, the stream
+    lib.pna_csr_moment_sketch.argtypes = [p] * 6 + [i] * 6 + [p] * 7 + [i, p]
     lib.pna_csr_moment_sketch.restype = i
+    lib.pna_csr_moment_sketch_max_feat.argtypes = []
+    lib.pna_csr_moment_sketch_max_feat.restype = i
     lib.pna_csr_dmsg.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p, p]
     lib.pna_csr_dmsg.restype = i
     # 10 pointers (u .. ke), the bfloat16 flag, 8 sizes (n_seg .. fe)

@@ -7,7 +7,7 @@ Counterpart of ``pna_tpu/ops/pallas_bank.py`` (``make_pallas_raw_bank``):
   elementwise (EPS inside the sqrt, relu clamp on the variance);
 * backward: the per-aggregator node gradients fold into four node fields
   (g_lin, g_quad, g_max, g_min), and K2 (``csr_dmsg``) expands them to the
-  edges; pad rows are then set to exactly 0.
+  edges; the kernel writes the pad rows as exactly 0, so no mask follows.
 
 On the card the backward is always K2.  The JAX package switches between an
 XLA gather and its kernel at an edge-count threshold calibrated on the TPU;
@@ -16,13 +16,14 @@ the gather form is the same function and serves here as K2's plain version
 
 Layout: ``CSRLayout`` holds the row pointers clamped to the real-edge count
 (pad messages carry the pretrans bias, not zeros, and must not enter any
-node's statistics), the degrees, the clamped counts and, for the fused bank
-(``csr_fused.py``), the int32 senders and the segment table that is the work
-list of K3/K4 (``csr_kernels.csr_segments``: ranges cut to at most ``SEG``
-edges; the row pointers themselves where collation says no node has more),
-built at its first use.  The layout is built once per batch and shared by
-every layer.  ``node_fields`` folds the aggregator gradients into the four
-node fields; both banks call it.
+node's statistics), the degrees, the clamped counts, the segment table that
+is the work list of K1, K3 and K4 and holds K2's row-to-node array
+(``csr_kernels.csr_segments``: ranges cut to at most ``SEG`` edges; the row
+pointers themselves where collation says no node has more), built at its
+first use, and, for the fused bank (``csr_fused.py``), the int32 senders.
+The layout is built once per batch and shared by every layer.
+``node_fields`` folds the aggregator gradients into the four node fields;
+both banks call it.
 """
 
 from __future__ import annotations
@@ -56,10 +57,11 @@ class CSRLayout:
 
     @property
     def segments(self) -> CSRSegments:
-        """K3/K4's work list, the segment table of ``ptr``, built when it is
-        first asked for: the CSR bank (K1/K2) never reads it and so never
-        pays for it (``csr_segments`` synchronises with the device unless
-        ``max_in_degree`` says that no node is split)."""
+        """The segment table of ``ptr``, the work list of K1, K3 and K4 and
+        the holder of K2's row-to-node array, built when a bank first asks
+        for it and shared by every layer of the batch (``csr_segments``
+        synchronises with the device unless ``max_in_degree`` says that no
+        node is split: give it wherever collation knows it)."""
         if self._segments is None:
             self._segments = csr_segments(self.ptr, self.max_in_degree)
         return self._segments
@@ -71,9 +73,8 @@ def csr_layout(edge_ptr: torch.Tensor, edge_mask: torch.Tensor,
                senders: Optional[torch.Tensor] = None) -> CSRLayout:
     """Bind a receiver-sorted layout; ``senders`` (the fused bank needs them)
     are stored as contiguous int32; the segment table of the clamped
-    pointers is built at the fused bank's first use of ``layout.segments``
-    (no device synchronisation where ``max_in_degree`` is given and at most
-    ``SEG``).
+    pointers is built at a bank's first use of ``layout.segments`` (no device
+    synchronisation where ``max_in_degree`` is given and at most ``SEG``).
 
     ``max_degree`` is the caller's in-degree bound hint (0 = none).  The
     kernels do not need it, but a hint below the true in-degree is an error,
@@ -152,27 +153,24 @@ class CSRBank(torch.autograd.Function):
     order."""
 
     @staticmethod
-    def forward(ctx, msg, ptr, cnt, edge_mask, aggregators):
-        s, sq, mx, mn, tmx, tmn = csr_moment_sketch(msg, ptr, with_ties=True)
+    def forward(ctx, msg, ptr, cnt, segments, aggregators):
+        s, sq, mx, mn, tmx, tmn = csr_moment_sketch(msg, ptr, with_ties=True,
+                                                    segments=segments)
         out, (mean, var_raw, std) = _assemble(aggregators, s, sq, mx, mn, cnt)
         ctx.aggregators = aggregators
-        ctx.save_for_backward(msg, ptr, cnt, edge_mask, mean, var_raw, std,
-                              mx, mn, tmx, tmn)
+        ctx.segments = segments
+        ctx.save_for_backward(msg, ptr, cnt, mean, var_raw, std, mx, mn, tmx,
+                              tmn)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, d_agg):
-        (msg, ptr, cnt, edge_mask, mean, var_raw, std, mx, mn, tmx,
-         tmn) = ctx.saved_tensors
+        msg, ptr, cnt, mean, var_raw, std, mx, mn, tmx, tmn = ctx.saved_tensors
         fields = node_fields(ctx.aggregators, d_agg, cnt, mean, var_raw, std,
                              tmx, tmn)
-        d_msg = csr_dmsg(msg, ptr, *fields, mx, mn)
-        # K2 leaves rows past ptr[N] unwritten (torch.empty, possibly NaN):
-        # select, never multiply, since NaN * 0 is NaN
-        d_msg = torch.where(edge_mask[:, None], d_msg,
-                            torch.zeros((), dtype=d_msg.dtype,
-                                        device=d_msg.device))
+        # the pad rows past ptr[N] come back as 0 (K2 writes them)
+        d_msg = csr_dmsg(msg, ptr, *fields, mx, mn, segments=ctx.segments)
         return d_msg, None, None, None, None
 
 
@@ -185,7 +183,8 @@ def csr_raw_bank(msg: torch.Tensor, layout: CSRLayout,
         raise ValueError(f"unsupported aggregators {aggregators}")
     msg = msg.to(torch.float32).contiguous()
     if torch.is_grad_enabled() and msg.requires_grad:
-        return CSRBank.apply(msg, layout.ptr, layout.cnt, layout.edge_mask,
+        return CSRBank.apply(msg, layout.ptr, layout.cnt, layout.segments,
                              tuple(aggregators))
-    s, sq, mx, mn = csr_moment_sketch(msg, layout.ptr, with_ties=False)
+    s, sq, mx, mn = csr_moment_sketch(msg, layout.ptr, with_ties=False,
+                                      segments=layout.segments)
     return _assemble(tuple(aggregators), s, sq, mx, mn, layout.cnt)[0]

@@ -163,25 +163,10 @@ def _check_shared(name, f, ef):
                          f"block may use")
 
 
-def _check_segments(name, segments, ptr):
-    """A caller's segment table must be the one of ``ptr``'s layout.  Its
-    node count and device are checked; its cuts are the caller's word, and
-    the kernels walk a segment of any length."""
-    if segments is None:
-        return
-    if segments.n_nodes != ptr.numel() - 1:
-        raise ValueError(f"{name}: segment table of {segments.n_nodes} nodes "
-                         f"for a ptr of {ptr.numel() - 1}")
-    if segments.seg_ptr.device != ptr.device:
-        raise ValueError(f"{name}: segment table on {segments.seg_ptr.device}"
-                         f", inputs on {ptr.device}")
-
-
 def _table_args(u, v, senders, segs, ef, ke):
     """Pointers shared by both entry points, up to the bfloat16 flag, and
     the sizes from ``n_seg`` to ``fe``."""
-    def at(x):
-        return None if x is None else x.data_ptr()
+    at = ck._at
     fe = 0 if ef is None else ef.shape[1]
     return ([u.data_ptr(), v.data_ptr(), senders.data_ptr(),
              segs.seg_ptr.data_ptr(), at(segs.seg_node), at(segs.seg_slot),
@@ -245,7 +230,7 @@ def csr_pretrans_sketch(u: torch.Tensor, v: torch.Tensor,
     """
     u = u.to(torch.float32)
     _check("csr_pretrans_sketch", u, v, senders, ptr, ef, ke)
-    _check_segments("csr_pretrans_sketch", segments, ptr)
+    ck.check_segments("csr_pretrans_sketch", segments, ptr)
     if u.device.type == "cpu":
         return csr_pretrans_sketch_plain(u, v, senders, ptr, ef, ke,
                                          with_ties)
@@ -270,7 +255,7 @@ def csr_pretrans_dmsg(u, v, senders, ptr, g_lin, g_quad, g_max, g_min, mx,
     u = u.to(torch.float32)
     fields = (g_lin, g_quad, g_max, g_min, mx, mn)
     _check("csr_pretrans_dmsg", u, v, senders, ptr, ef, ke, fields)
-    _check_segments("csr_pretrans_dmsg", segments, ptr)
+    ck.check_segments("csr_pretrans_dmsg", segments, ptr)
     if u.device.type == "cpu":
         return csr_pretrans_dmsg_plain(u, v, senders, ptr, *fields, ef, ke)
     _check_shared("csr_pretrans_dmsg", u.shape[1], ef)

@@ -20,14 +20,19 @@ The plain versions work on any device and are what the kernels are held
 against on the card.  The registry of the launch counts of all the port's
 kernels is ``csr_fused_kernels.launch_counts``.
 
-The segment table (``csr_segments``) is the work list of the fused kernels
-K3/K4: every node's range cut into segments of at most ``SEG`` edges, so that
-a hub node's range spreads over the card.
+The segment table (``csr_segments``) is the work list of K1 and of the fused
+kernels K3/K4: every node's range cut into segments of at most ``SEG`` edges,
+so that a hub node's range spreads over the card; a split node's segments
+write partial sketches that a second small kernel merges in segment order
+(``csr_fused_kernels.merge_segment_sketches_plain`` is that merge in plain
+torch).  K2 is edge-owned and reads each row's node from the table's
+``row_node`` array.  All four wrappers take the batch's table as
+``segments=`` (``CSRLayout.segments``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -46,7 +51,7 @@ def _row_segments(ptr: torch.Tensor, n_rows: int):
     return ids, valid
 
 
-# longest run of edges one thread of K3/K4 reduces (kSeg of
+# longest run of edges one thread of K1/K3/K4 reduces (kSeg of
 # csrc/pretrans_msg.cuh).  32 keeps a hub's segments short enough to balance
 # over the card while a node of ordinary degree (ZINC: at most 4) stays whole
 SEG = 32
@@ -74,6 +79,27 @@ class CSRSegments:
     seg_slot: Optional[torch.Tensor] = None     # [S] int32
     split_node: Optional[torch.Tensor] = None   # [n_split] int32
     split_ptr: Optional[torch.Tensor] = None    # [n_split+1] int32
+    _row_node: Optional[torch.Tensor] = field(default=None, repr=False)
+
+    def row_node(self, n_rows: int) -> torch.Tensor:
+        """K2's receiver array: the node of each of the ``n_rows`` message
+        rows, int32; a row in no node's range gets a value outside
+        ``[0, N)`` (-1 before ``ptr[0]``; N, or -1 from a cut table, from
+        ``ptr[N]`` on).  Built when it is first asked for, in three small
+        kernels without device synchronisation where no node is split, and
+        kept: a layout's table serves every layer of the batch."""
+        if self._row_node is None or self._row_node.numel() != n_rows:
+            sp = self.seg_ptr
+            rows = torch.arange(n_rows, device=sp.device, dtype=sp.dtype)
+            # the last segment that starts at or before the row
+            at = torch.searchsorted(sp, rows, right=True, out_int32=True) - 1
+            if self.seg_node is not None:
+                inside = (at >= 0) & (at < self.n_seg)
+                at = torch.where(
+                    inside, self.seg_node[at.clamp(0, self.n_seg - 1).long()],
+                    -1)
+            self._row_node = at
+        return self._row_node
 
 
 def csr_segments(ptr: torch.Tensor,
@@ -167,50 +193,98 @@ def _check(name, msg, ptr, fields=()):
         raise ValueError(f"{name}: sizes must fit int32")
 
 
+def check_segments(name, segments, ptr):
+    """A caller's segment table must be the one of ``ptr``'s layout.  Its
+    node count and device are checked; its cuts are the caller's word, and
+    the kernels walk a segment of any length."""
+    if segments is None:
+        return
+    if segments.n_nodes != ptr.numel() - 1:
+        raise ValueError(f"{name}: segment table of {segments.n_nodes} nodes "
+                         f"for a ptr of {ptr.numel() - 1}")
+    if segments.seg_ptr.device != ptr.device:
+        raise ValueError(f"{name}: segment table on {segments.seg_ptr.device}"
+                         f", inputs on {ptr.device}")
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _at(x):
+    return None if x is None else x.data_ptr()
+
+
 def csr_moment_sketch(msg: torch.Tensor, ptr: torch.Tensor,
-                      with_ties: bool = False):
+                      with_ties: bool = False,
+                      segments: Optional[CSRSegments] = None):
     """K1.  msg [E, F] float32, ptr [N+1] int32 -> 4 (or 6 with ties)
-    [N, F] float32 tensors: sum, sumsq, max, min (, ties_max, ties_min)."""
+    [N, F] float32 tensors: sum, sumsq, max, min (, ties_max, ties_min).
+
+    ``segments`` is the segment table of ``ptr`` (``CSRLayout.segments``),
+    the kernel's work list; without it the table is built here, which reads
+    the degrees back from the card.  One call counts one launch; where a
+    node is split it starts a second small kernel that merges the partials.
+    """
     _check("csr_moment_sketch", msg, ptr)
+    check_segments("csr_moment_sketch", segments, ptr)
     if msg.device.type == "cpu":
         return csr_moment_sketch_plain(msg, ptr, with_ties)
     n, f = ptr.numel() - 1, msg.shape[1]
-    outs = [torch.empty((n, f), dtype=torch.float32, device=msg.device)
-            for _ in range(6 if with_ties else 4)]
-    tie_ptrs = ([o.data_ptr() for o in outs[4:]] if with_ties
-                else [None, None])
     lib = build.load()
+    widest = lib.pna_csr_moment_sketch_max_feat()
+    if f > widest:
+        raise ValueError(f"csr_moment_sketch: a row of F = {f} floats is over"
+                         f" the {widest} a block stages in shared memory")
+    segs = csr_segments(ptr) if segments is None else segments
     with torch.cuda.device(msg.device):
+        # two buffers, not six: the sums, which the bank drops after the
+        # forward, and the selections, which autograd keeps for K2 (in one
+        # buffer the sums would stay alive with them until the backward)
+        outs = (*torch.empty((2, n, f), dtype=torch.float32,
+                             device=msg.device).unbind(0),
+                *torch.empty((4 if with_ties else 2, n, f),
+                             dtype=torch.float32,
+                             device=msg.device).unbind(0))
+        part = (torch.empty((segs.n_part, 6, f), dtype=torch.float32,
+                            device=msg.device) if segs.n_split else None)
+        out_ptrs = [o.data_ptr() for o in outs] + [None] * (6 - len(outs))
         rc = lib.pna_csr_moment_sketch(
-            msg.data_ptr(), ptr.data_ptr(), n, msg.shape[0], f,
-            *[o.data_ptr() for o in outs[:4]], *tie_ptrs,
-            int(with_ties), _stream(msg.device))
+            msg.data_ptr(), segs.seg_ptr.data_ptr(), _at(segs.seg_node),
+            _at(segs.seg_slot), _at(segs.split_node), _at(segs.split_ptr),
+            segs.n_seg, segs.n_split, segs.n_part, n, msg.shape[0], f,
+            *out_ptrs, _at(part), int(with_ties), _stream(msg.device))
     build.check(lib, rc, "csr_moment_sketch")
     csr_moment_sketch.launches += 1
-    return tuple(outs)
+    return outs
 
 
 csr_moment_sketch.launches = 0
 
 
-def csr_dmsg(msg, ptr, g_lin, g_quad, g_max, g_min, mx, mn) -> torch.Tensor:
+def csr_dmsg(msg, ptr, g_lin, g_quad, g_max, g_min, mx, mn,
+             segments: Optional[CSRSegments] = None) -> torch.Tensor:
     """K2.  msg [E, F] float32, ptr [N+1] int32, six [N, F] float32 node
     fields (g_max/g_min already divided by the tie counts; mx/mn the forward
-    max/min) -> d_msg [E, F] float32.  Rows outside every node's range are
-    left unwritten on the card: mask them before use."""
+    max/min) -> d_msg [E, F] float32.  Rows outside every node's range (the
+    pad edges past ``ptr[N]``) are 0.
+
+    The kernel reads each row's node from ``segments.row_node`` (the table
+    of ``ptr``, ``CSRLayout.segments``, which keeps the array for the
+    batch's other layers); without a table the array is built here."""
     fields = (g_lin, g_quad, g_max, g_min, mx, mn)
     _check("csr_dmsg", msg, ptr, fields)
+    check_segments("csr_dmsg", segments, ptr)
     if msg.device.type == "cpu":
         return csr_dmsg_plain(msg, ptr, *fields)
     n, f = ptr.numel() - 1, msg.shape[1]
-    out = torch.empty_like(msg)
+    if segments is None:      # K2 needs no cuts: the row pointers will do
+        segments = CSRSegments(seg_ptr=ptr, n_seg=n, n_nodes=n)
     lib = build.load()
     with torch.cuda.device(msg.device):
-        rc = lib.pna_csr_dmsg(msg.data_ptr(), ptr.data_ptr(),
+        row_node = segments.row_node(msg.shape[0])
+        out = torch.empty_like(msg)
+        rc = lib.pna_csr_dmsg(msg.data_ptr(), row_node.data_ptr(),
                               *[x.data_ptr() for x in fields], n,
                               msg.shape[0], f,
                               out.data_ptr(), _stream(msg.device))

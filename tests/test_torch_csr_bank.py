@@ -70,6 +70,57 @@ def test_bank_matches_pallas_bank(aggs, bwd_kernel):
     assert pad.sum() > 100 and np.all(gt[pad] == 0.0)
 
 
+@pytest.mark.parametrize("bwd_kernel", [True, False])
+def test_bank_with_a_split_node_matches_pallas_bank(bwd_kernel):
+    """A star of 40 leaves among ordinary graphs: its centre has more than
+    SEG in-edges, so the layout's table splits it and the bank hands that
+    table to K1 and K2.  Pad messages are non-zero and one pad row holds a
+    NaN: neither enters Z, and the pad rows of d_msg are exactly 0 with no
+    mask after K2."""
+    rng = np.random.RandomState(5)
+    leaves = np.arange(1, 41, dtype=np.int32)
+    star = dict(node_feats=rng.randn(41, 8).astype(np.float32),
+                senders=np.concatenate([leaves, [0]]).astype(np.int32),
+                receivers=np.concatenate([np.zeros(40, np.int32), [3]]))
+    graphs = _random_graphs(rng, 3) + [star] + _random_graphs(rng, 2)
+    tg = batch_graphs(graphs, n_edge_pad=512)
+    jg = j_batch_graphs(graphs, with_ell=False, sort_edges=True,
+                        n_edge_pad=512)
+    layout = csr_bank.layout_from_graph(tg)
+    assert tg.max_in_degree == 40 and layout.segments.n_split == 1
+    assert layout.segments.n_part == 2
+    pad = ~tg.edge_mask.numpy()
+    msg = rng.randn(tg.n_edge_pad, 16).astype(np.float32)
+    msg[1] = msg[0]                           # tie material
+    msg[pad] = 1e6
+    msg_nan = msg.copy()
+    msg_nan[np.nonzero(pad)[0][3], 5] = np.nan
+
+    bank = make_pallas_raw_bank(jg.receivers, jg.edge_mask, jg.edge_ptr,
+                                interpret=True, bwd_kernel=bwd_kernel)
+    zj = np.asarray(bank(jnp.asarray(msg), AGGS))
+    gj = np.asarray(jax.grad(lambda m: jnp.sum(jnp.sin(bank(m, AGGS) * 0.7)))(
+        jnp.asarray(msg)))
+
+    zt, gt = _torch_grad(msg_nan, layout, AGGS)
+    np.testing.assert_allclose(zt, zj, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gt[~pad], gj[~pad], rtol=1e-4, atol=1e-5)
+    assert pad.sum() > 100 and np.all(gt[pad] == 0.0)
+
+
+def test_backward_does_not_mask():
+    """K2 writes the pad rows itself, so the bank's backward is K2's output
+    as it comes: no ``where`` over [E, F] follows."""
+    import ast
+    import inspect
+    import textwrap
+    tree = ast.parse(textwrap.dedent(
+        inspect.getsource(csr_bank.CSRBank.backward)))
+    called = {n.func.attr for n in ast.walk(tree)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)}
+    assert "where" not in called and "masked_fill" not in called
+
+
 def test_forward_without_grad_matches():
     """Without autograd the bank runs K1 without tie counts; same Z."""
     rng, tg, _ = _batch(1)

@@ -16,7 +16,7 @@ import jax.numpy as jnp
 
 from pna_tpu.ops.pallas_kernels import sorted_dmsg, sorted_moment_sketch
 from pna_tpu_torch.ops import csr_kernels as ck
-from tests.test_torch_cuda import CASES, F, valid_rows
+from tests.test_torch_cuda import CASES, F, sketch_case, valid_rows
 from tests.test_torch_cuda import layout_case as _case
 
 
@@ -78,3 +78,36 @@ def test_wrappers_check_inputs():
         ck.csr_dmsg(msg, ptr, *([torch.zeros(3, 4)] * 6))
     with pytest.raises(ValueError, match="device"):
         ck.csr_moment_sketch(msg.to("meta"), ptr.to("meta"))
+
+
+@pytest.mark.parametrize("f", [F, 75])
+def test_kernels_with_the_segment_table_match_pallas(f):
+    """Whole and split nodes, rows before ptr[0] and after ptr[N], ties
+    across segment cuts, at an even and an odd width: the wrappers given the
+    layout's table against the Pallas kernels."""
+    msg, ptr, tie_node = sketch_case(f)
+    m, p = torch.from_numpy(msg), torch.from_numpy(ptr)
+    segs = ck.csr_segments(p)
+    assert segs.n_split == 4
+    got = ck.csr_moment_sketch(m, p, True, segments=segs)
+    want = sorted_moment_sketch(jnp.asarray(msg), jnp.asarray(ptr),
+                                with_ties=True, interpret=True)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i < 2:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                       atol=1e-5)
+        else:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert torch.all(got[4][tie_node] == 2) and torch.all(got[5][tie_node] == 2)
+    rng = np.random.RandomState(2)
+    g = [rng.randn(len(ptr) - 1, f).astype(np.float32) for _ in range(4)]
+    g[2] /= got[4].numpy()
+    g[3] /= got[5].numpy()
+    fields = g + [got[2].numpy(), got[3].numpy()]
+    d = ck.csr_dmsg(m, p, *map(torch.from_numpy, fields),
+                    segments=segs).numpy()
+    want = np.asarray(sorted_dmsg(jnp.asarray(msg), jnp.asarray(ptr),
+                                  *map(jnp.asarray, fields), interpret=True))
+    valid = valid_rows(ptr, len(msg))
+    np.testing.assert_allclose(d[valid], want[valid], rtol=1e-5, atol=1e-6)
+    assert (~valid).sum() == 12 and np.all(d[~valid] == 0)

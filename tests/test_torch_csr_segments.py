@@ -1,5 +1,6 @@
-"""The segment table of the fused kernels K3/K4 and the plain version of their
-merge pass (pna_tpu_torch.ops.csr_kernels.csr_segments,
+"""The segment table of K1 and of the fused kernels K3/K4, the row-to-node
+array it holds for K2, and the plain version of the merge pass
+(pna_tpu_torch.ops.csr_kernels.csr_segments, CSRSegments.row_node,
 pna_tpu_torch.ops.csr_fused_kernels.merge_segment_sketches_plain), on the CPU.
 
 The table cuts every node's edge range into segments of at most SEG edges.
@@ -27,7 +28,7 @@ from pna_tpu_torch.ops import csr_bank
 from pna_tpu_torch.ops import csr_fused_kernels as fk
 from pna_tpu_torch.ops import csr_kernels as ck
 from tests.test_torch_csr_bank import _random_graphs
-from tests.test_torch_cuda import segment_case
+from tests.test_torch_cuda import segment_case, sketch_case
 
 SEG = ck.SEG
 F = 6
@@ -121,7 +122,7 @@ def test_layout_carries_the_table_for_the_fused_bank():
     layout = csr_bank.layout_from_graph(g)
     assert layout.segments.seg_ptr is layout.ptr        # ZINC-like degrees
     assert layout.segments.n_nodes == g.n_node_pad
-    # built at first use only: the CSR bank never asks
+    # built at a bank's first use only
     assert layout._segments is layout.segments
     assert csr_bank.layout_from_graph(g)._segments is None
     ptr, e = _layout("hub", pad=3)
@@ -196,6 +197,66 @@ def test_wrappers_take_and_check_the_table():
     d_msg, _ = fk.csr_pretrans_dmsg(u, v, snd, ptr, *fields, ef, ke,
                                     segments=segs)
     assert torch.all(d_msg[int(ptr[-1]):] == 0)         # pad rows are 0
+
+
+@pytest.mark.parametrize("f", [12, 75])
+def test_k1_segment_sketches_merge_to_the_node_sketch(f):
+    """K1's two passes in plain torch on ``sketch_case`` (a hub of 300, empty
+    nodes, a tie on either side of two segment cuts, rows of no node before
+    and after, an even and an odd width): the sketch per segment, merged,
+    is the sketch per node."""
+    msg, ptr, tie_node = sketch_case(f)
+    msg, ptr = torch.from_numpy(msg), torch.from_numpy(ptr)
+    for with_ties in (False, True):
+        got, segs = _segment_sketch(msg, ptr, with_ties)
+        want = ck.csr_moment_sketch_plain(msg, ptr, with_ties)
+        scale = ck.csr_moment_sketch_plain(msg.abs(), ptr)[0]
+        assert torch.all((got[0] - want[0]).abs() <= 1e-5 * scale + 1e-6)
+        assert torch.all((got[1] - want[1]).abs() <= 1e-5 * want[1] + 1e-6)
+        for g, w in zip(got[2:], want[2:]):
+            assert torch.equal(g, w)
+    assert segs.n_split == 4 and int((ptr[1:] == ptr[:-1]).sum()) >= 3
+    assert torch.all(got[4][tie_node] == 2) and torch.all(got[5][tie_node] == 2)
+    assert float(got[2].max()) == 100.0       # no row of no node entered
+
+
+@pytest.mark.parametrize("name", sorted(DEGREES))
+def test_row_node_is_the_receiver_of_every_row(name):
+    """K2's receiver array, from the cut table and from the row pointers as
+    the table: the node whose range holds the row, a value outside [0, N)
+    before ptr[0] and from ptr[N] on; built once and kept."""
+    ptr, e = _layout(name, pad=4, start=2)
+    n = ptr.numel() - 1
+    ids, valid = ck._row_segments(ptr, e)
+    assert int((~valid).sum()) == 6
+    for segs in (ck.csr_segments(ptr),
+                 ck.CSRSegments(seg_ptr=ptr, n_seg=n, n_nodes=n)):
+        got = segs.row_node(e)
+        assert got.dtype == torch.int32 and got.shape == (e,)
+        assert torch.equal(got[valid].long(), ids[valid])
+        assert torch.all((got[~valid] < 0) | (got[~valid] >= n))
+        assert segs.row_node(e) is got
+        assert segs.row_node(e - 1).numel() == e - 1    # another row count
+
+
+def test_k1_k2_wrappers_take_and_check_the_table():
+    msg, ptr, _ = sketch_case()
+    msg, ptr = torch.from_numpy(msg), torch.from_numpy(ptr)
+    segs = ck.csr_segments(ptr)
+    with_table = ck.csr_moment_sketch(msg, ptr, True, segments=segs)
+    without = ck.csr_moment_sketch(msg, ptr, True)
+    for a, b in zip(with_table, without):
+        assert torch.equal(a, b)
+    other = ck.csr_segments(ptr[:-1])
+    with pytest.raises(ValueError, match="segment table"):
+        ck.csr_moment_sketch(msg, ptr, True, segments=other)
+    fields = [torch.ones_like(with_table[0])] * 4 + list(with_table[2:4])
+    with pytest.raises(ValueError, match="segment table"):
+        ck.csr_dmsg(msg, ptr, *fields, segments=other)
+    d_msg = ck.csr_dmsg(msg, ptr, *fields, segments=segs)
+    assert torch.equal(d_msg, ck.csr_dmsg(msg, ptr, *fields))
+    assert torch.all(d_msg[int(ptr[-1]):] == 0)         # pad rows are 0
+    assert torch.all(d_msg[:int(ptr[0])] == 0)
 
 
 def test_python_mirrors_the_kernels_constants():

@@ -14,7 +14,7 @@ sum of 1,200 terms that cancels has no relative bound: the hub's read
 2.2e-5 off at one element in some runs and not in others); max, min and tie
 counts exactly equal (the plain versions form the same messages bit for
 bit); d_msg rtol 1e-5, atol 1e-6, on every row (K4 writes the rows outside
-every range as 0).
+every range as 0, and so does K2).
 
 ``segment_case`` is the layout of whole and split nodes that
 tests/test_torch_csr_segments.py shares."""
@@ -128,6 +128,28 @@ def segment_case(seed=11, f=F, fe=FE):
     return u, v, snd, ef, ke, ptr, tie_node
 
 
+def sketch_case(f=F, seed=13):
+    """Messages for K1/K2 over ``segment_case``'s layout of whole and split
+    nodes, moved 3 rows down (rows before ptr[0] belong to no node) with 9
+    pad rows after: (msg [E, f], ptr, tie node).  Values are drawn from a few
+    levels, so ties are everywhere; the node of 3 SEG edges holds +100 on
+    either side of its first segment cut and -100 on either side of its
+    second, so both its tie counts are 2 at every feature.  Rows of no node
+    carry 1e6 and must enter nothing."""
+    *_, ptr, tie_node = segment_case()
+    ptr = ptr + 3
+    rng = np.random.RandomState(seed)
+    e = int(ptr[-1]) + 9
+    msg = rng.randn(e, f).astype(np.float32)
+    msg[:, ::2] = rng.randint(-2, 3, msg[:, ::2].shape)
+    lo = ptr[tie_node]
+    msg[lo + ck.SEG - 1:lo + ck.SEG + 1] = 100.0
+    msg[lo + 2 * ck.SEG - 1:lo + 2 * ck.SEG + 1] = -100.0
+    msg[:ptr[0]] = 1e6
+    msg[ptr[-1]:] = 1e6
+    return msg, ptr.astype(np.int32), tie_node
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
@@ -154,9 +176,10 @@ def test_cuda_kernels_match_plain(case):
     fields = [torch.randn(n, F, device='cuda') for _ in range(4)]
     fields += [got[2], got[3]]
     valid = torch.from_numpy(valid_rows(ptr, len(msg))).cuda()
-    d = ck.csr_dmsg(m, p, *fields)[valid]
-    torch.testing.assert_close(d, ck.csr_dmsg_plain(m, p, *fields)[valid],
-                               rtol=1e-5, atol=1e-6)
+    d = ck.csr_dmsg(m, p, *fields)
+    torch.testing.assert_close(d, ck.csr_dmsg_plain(m, p, *fields),
+                               rtol=1e-5, atol=1e-6)     # every row
+    assert torch.all(d[~valid] == 0)             # written, not left over
     after = fk.launch_counts()
     assert after['csr_moment_sketch'] == before['csr_moment_sketch'] + 2
     assert after['csr_dmsg'] == before['csr_dmsg'] + 1
@@ -188,6 +211,144 @@ def _sum_close(got, want, rows, ptr):
     (plus 1e-5): the two versions add in other orders."""
     scale = ck.csr_moment_sketch_plain(rows.abs(), ptr)[0]
     assert bool(((got - want).abs() <= 1e-5 * scale + 1e-5).all())
+
+
+def _hold_csr(m, p, table, tie_node=None, seed=0):
+    """K1 with and without ties and K2 on every row against their plain
+    versions, with ``table`` as the segment table (None: the wrappers build
+    it); returns K1's six outputs and K2's."""
+    for with_ties in (False, True):
+        got = ck.csr_moment_sketch(m, p, with_ties, segments=table)
+        want = ck.csr_moment_sketch_plain(m, p, with_ties)
+        _sum_close(got[0], want[0], m, p)
+        _sum_close(got[1], want[1], m * m, p)
+        for g, w in zip(got[2:], want[2:]):
+            assert torch.equal(g, w)
+    if tie_node is not None:
+        assert torch.all(got[4][tie_node] == 2)
+        assert torch.all(got[5][tie_node] == 2)
+    gen = torch.Generator().manual_seed(seed)
+    fields = [torch.randn(got[0].shape, generator=gen).cuda()
+              for _ in range(4)]
+    fields[2] /= got[4]
+    fields[3] /= got[5]
+    fields += [got[2], got[3]]
+    d = ck.csr_dmsg(m, p, *fields, segments=table)
+    torch.testing.assert_close(d, ck.csr_dmsg_plain(m, p, *fields),
+                               rtol=1e-5, atol=1e-6)
+    _, valid = ck._row_segments(p, m.shape[0])
+    assert torch.all(d[~valid] == 0)
+    return got + (d,)
+
+
+def _coarse_table(ptr, cut):
+    """A caller's own table of ``ptr`` (numpy), ranges cut at ``cut`` edges
+    instead of SEG, on the card."""
+    deg = np.diff(ptr)
+    cuts, nodes, slots, split_node, split_ptr = [int(ptr[0])], [], [], [], [0]
+    for i, d in enumerate(deg):
+        k = max(1, -(-int(d) // cut))
+        for j in range(k):
+            cuts.append(int(ptr[i]) + min(int(d), cut * (j + 1)))
+            nodes.append(i)
+            slots.append(split_ptr[-1] + j if k > 1 else -1)
+        if k > 1:
+            split_node.append(i)
+            split_ptr.append(split_ptr[-1] + k)
+    i32 = dict(dtype=torch.int32, device='cuda')
+    return ck.CSRSegments(
+        seg_ptr=torch.tensor(cuts, **i32), n_seg=len(nodes), n_nodes=len(deg),
+        n_split=len(split_node), n_part=split_ptr[-1],
+        seg_node=torch.tensor(nodes, **i32),
+        seg_slot=torch.tensor(slots, **i32),
+        split_node=torch.tensor(split_node, **i32),
+        split_ptr=torch.tensor(split_ptr, **i32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 33, 70, 75, 128, 300])
+def test_cuda_csr_split_nodes_match_plain(f):
+    """K1 and K2 on whole and split nodes (in-degrees 0, SEG, SEG + 1, a hub
+    of 300), rows of no node before and after, ties across segment
+    boundaries, at widths whose rows start on 4-, 8- and 16-byte boundaries.
+    With the table given, built by the wrappers, uncut (the row pointers: the
+    hub is one segment of several staged spans) and cut at 80 edges (split
+    nodes whose partials are continued); and on a msg that starts 4 bytes off
+    a 16-byte boundary."""
+    _need_card()
+    msg, ptr, tie_node = sketch_case(f)
+    m, p = torch.from_numpy(msg).cuda(), torch.from_numpy(ptr).cuda()
+    segs = ck.csr_segments(p)
+    assert segs.n_split == 4 and segs.n_part == 2 + 3 + 3 + 10
+    n = p.numel() - 1
+    whole = ck.CSRSegments(seg_ptr=p, n_seg=n, n_nodes=n)
+    coarse = _coarse_table(ptr, 80)
+    assert coarse.n_split == 2
+    runs = [_hold_csr(m, p, table, tie_node)
+            for table in (segs, None, whole, coarse)]
+    off = torch.empty(m.numel() + 1, device='cuda')[1:].view(m.shape)
+    off.copy_(m)
+    assert off.data_ptr() % 16 == 4
+    runs.append(_hold_csr(off, p, segs, tie_node))
+    # max, min and tie counts do not depend on the table; nor does d_msg
+    for other in runs[1:]:
+        for a, b in zip(runs[0][2:], other[2:]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_csr_same_bits_every_run():
+    """No atomics and a fixed merge order: two runs of K1 and K2 on a hub
+    (a node of 13,107 edges among 4,096) give the same bits."""
+    _need_card()
+    rng = np.random.RandomState(3)
+    n, e = 4096, 65536
+    recv = rng.randint(0, n, e)
+    recv[: e // 5] = 17
+    ptr = _ptr(np.sort(recv), n)
+    m = torch.from_numpy(rng.randn(e, 70).astype(np.float32)).cuda()
+    p = torch.from_numpy(ptr).cuda()
+    segs = ck.csr_segments(p)
+    assert segs.n_split == 1
+    assert segs.n_part == -(-int(np.diff(ptr).max()) // ck.SEG) > 400
+    first = _hold_csr(m, p, segs)
+    again = _hold_csr(m, p, segs)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_csr_many_tiles_per_block():
+    """120,000 nodes are more tiles than one round of resident blocks takes:
+    every block of K1 stages several spans in turn in its two buffers, and
+    two split nodes lie far apart."""
+    _need_card()
+    rng = np.random.RandomState(5)
+    deg = rng.randint(0, 5, 120_000)
+    deg[[7, 90_001]] = 500
+    ptr = np.zeros(len(deg) + 1, np.int32)
+    ptr[1:] = np.cumsum(deg)
+    m = torch.from_numpy(
+        rng.randn(int(ptr[-1]) + 40, F).astype(np.float32)).cuda()
+    dup = torch.arange(1, m.shape[0], 5, device='cuda')
+    m[dup] = m[dup - 1]                      # tie material
+    p = torch.from_numpy(ptr).cuda()
+    segs = ck.csr_segments(p)
+    assert segs.n_split == 2
+    _hold_csr(m, p, segs)
+
+
+@pytest.mark.cuda
+def test_cuda_csr_refuses_a_row_shared_memory_cannot_hold():
+    """A row of 12,289 floats is over one staging buffer: K1's wrapper raises
+    in words before any launch; 12,288, the most that fits, still runs (one
+    row a span)."""
+    _need_card()
+    p = torch.tensor([0, 2, 2, 5], dtype=torch.int32, device='cuda')
+    m = torch.randn(6, 12289, device='cuda')
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.csr_moment_sketch(m, p)
+    _hold_csr(m[:, :12288].contiguous(), p, None)
 
 
 @pytest.mark.cuda
@@ -323,24 +484,7 @@ def test_cuda_pretrans_walks_segments_of_any_length(dtype, f):
     whole = ck.CSRSegments(seg_ptr=p, n_seg=n, n_nodes=n)
     # the same table type cut at 80 edges: the hub of 300 has 4 segments,
     # the nodes of 100 and 3 SEG two each
-    cuts, nodes, slots, split_node, split_ptr = [0], [], [], [], [0]
-    for i, d in enumerate(deg):
-        k = max(1, -(-int(d) // 80))
-        for j in range(k):
-            cuts.append(int(ptr[i]) + min(int(d), 80 * (j + 1)))
-            nodes.append(i)
-            slots.append(split_ptr[-1] + j if k > 1 else -1)
-        if k > 1:
-            split_node.append(i)
-            split_ptr.append(split_ptr[-1] + k)
-    i32 = dict(dtype=torch.int32, device='cuda')
-    coarse = ck.CSRSegments(
-        seg_ptr=torch.tensor(cuts, **i32), n_seg=len(nodes), n_nodes=n,
-        n_split=len(split_node), n_part=split_ptr[-1],
-        seg_node=torch.tensor(nodes, **i32),
-        seg_slot=torch.tensor(slots, **i32),
-        split_node=torch.tensor(split_node, **i32),
-        split_ptr=torch.tensor(split_ptr, **i32))
+    coarse = _coarse_table(ptr, 80)
     assert coarse.n_split == 3
     m = fk.pretrans_messages_plain(u, v, snd, p, ef, ke)
     for table in (whole, coarse):
