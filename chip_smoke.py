@@ -34,23 +34,47 @@ Phases (any failure raises, so the script exits non-zero):
    Then the four are timed again in alternating blocks of steps, so that
    host drift falls on all of them alike;
 5. entry: the ``entry()`` twin (no edge features) in eval mode, K1 without
-   ties, against the same model on the CPU.
+   ties, against the same model on the CPU;
+6. the pipeline's shapes (after phase 3, with its timer): K1 (with and
+   without ties) and K2 against their plain versions on the first batch of
+   each CLI at the message widths of its JSON config's layers: the ZINC CLI
+   (128 graphs; F = 375 in layers 0-2, 75 in the last) and an MNIST-shaped
+   batch (128 graphs of 75 superpixels; F = 100, then 500), with the nodes
+   the segment table splits;
+7. pipeline: ``main_molecules.main(['--synthetic', '--epochs', '3'])`` and
+   ``main_superpixels.main(['--synthetic', '--epochs', '2'])`` on the card at
+   their JSON configs' full width: the train loss falls, the "Best val"
+   line prints a finite metric, exactly 4 K1 and 4 K2 launches per train
+   step, 4 K1 per evaluation batch and none of K3/K4; seconds per epoch,
+   steps per second, and the shares of batch collation and of the per-step
+   loss read;
+8. the first train step of each CLI's config through the trainer on the
+   card against the CPU (the ZINC batch; the MNIST-shaped batch);
+9. resume on the card: 2 epochs and a resume to 3 against 3 straight, on a
+   small ZINC configuration with dropout.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
 """
 
+import contextlib
+import io
 import json
 import math
+import os
 import statistics
 import sys
+import tempfile
 import time
 
 import torch
 
 from pna_tpu_torch import entry
-from pna_tpu_torch.data.molecules import ZincDataset, collate_records
+from pna_tpu_torch.cli import main_molecules, main_superpixels
+from pna_tpu_torch.data.molecules import (ZincDataset, batch_iterator,
+                                          collate_records)
+from pna_tpu_torch.data.superpixels import SuperpixelsDataset
 from pna_tpu_torch.nn.nets import PNANetMolecules
 from pna_tpu_torch.ops import build, csr_kernels
 from pna_tpu_torch.ops import csr_fused_kernels as fk
@@ -58,6 +82,7 @@ from pna_tpu_torch.ops.csr_bank import csr_layout
 from pna_tpu_torch.ops.csr_kernels import SEG, CSRSegments, csr_segments
 from pna_tpu_torch.ops.timing import (card_line, flush_buffer, hub_case,
                                       make_messages, time_cuda)
+from pna_tpu_torch.train.realworld import PipelineConfig, RealworldTrainer
 from pna_tpu_torch.train.step import loss_and_grads, make_optimizer, train_step
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and float32
@@ -112,6 +137,15 @@ GRAD_TOL, LOSS_RTOL = 2e-3, 1e-4
 # loss within 1e-2 (the CPU tests hold the port to the JAX bfloat16 path
 # with the same bounds)
 BF16_GRAD_TOL, BF16_LOSS_RTOL = 5e-2, 1e-2
+# a run resumed from its checkpoint against the same run straight through,
+# on the card: every history value of the resumed epoch within this share
+RESUME_RTOL = 1e-3
+# the trainer steps' gradient check: the least scale of a gradient tensor,
+# as a share of the model's largest gradient entry (see trainer_step_phase)
+ZERO_GRAD_FLOOR = 1e-3
+
+ZINC_CONFIG = 'molecules_graph_regression_pna_ZINC.json'
+MNIST_CONFIG = 'superpixels_graph_classification_pna_MNIST.json'
 
 
 def log(*args):
@@ -214,6 +248,48 @@ def segment_reduce_ms(msg, ptr, flush):
     return time_cuda(run, flush)
 
 
+def csr_case(name, ptr, n_rows, segs, f, dev, gen, flush):
+    """K1 (with and without ties) and K2 on random messages [n_rows, f]
+    over ``ptr`` (``segs``: its segment table): checked against their plain
+    versions, then timed beside their byte bounds.  Returns (times, bounds
+    and the messages; K1 error; K2 error; K2's arguments; K1's six
+    outputs)."""
+    n = ptr.numel() - 1
+    msg = make_messages(n_rows, f, dev, gen)
+    rows = int(ptr[-1] - ptr[0])
+    e1, e2, args, kern6 = check_csr(msg, ptr, segs, gen, name)
+    t = {
+        "k1": time_cuda(lambda: csr_kernels.csr_moment_sketch(
+            msg, ptr, True, segments=segs), flush),
+        "k1_no_ties": time_cuda(lambda: csr_kernels.csr_moment_sketch(
+            msg, ptr, False, segments=segs), flush),
+        "k1_plain": time_cuda(lambda: csr_kernels.csr_moment_sketch_plain(
+            msg, ptr, True), flush),
+        "k2": time_cuda(lambda: csr_kernels.csr_dmsg(
+            *args, segments=segs), flush),
+        "k2_plain": time_cuda(lambda: csr_kernels.csr_dmsg_plain(*args),
+                              flush),
+        "msg": msg,
+    }
+    # K1 reads the real rows and the table's pointers; K2 reads the real
+    # rows, the row-to-node array and the node fields and writes every row
+    # of d_msg, the rows of no node as 0
+    t["k1_bound"] = bound_ms(rows * f * 4 + (segs.n_seg + 1) * 4
+                             + 6 * n * f * 4, 7 * rows * f)
+    t["k1_bound4"] = bound_ms(rows * f * 4 + (segs.n_seg + 1) * 4
+                              + 4 * n * f * 4, 5 * rows * f)
+    t["k2_bound"] = bound_ms(rows * f * 4 + n_rows * 4 + 6 * n * f * 4
+                             + n_rows * f * 4, 6 * rows * f)
+    log(f"kernels[{name}] N={n} E={n_rows} rows={rows} F={f}, "
+        f"{segs.n_seg} segments, {segs.n_split} split nodes: "
+        f"K1 ties {t['k1']:.4f} ms (plain {t['k1_plain']:.4f}, bound "
+        f"{t['k1_bound'][0]:.4f}), K1 no ties {t['k1_no_ties']:.4f} ms "
+        f"(bound {t['k1_bound4'][0]:.4f}), K2 {t['k2']:.4f} ms (plain "
+        f"{t['k2_plain']:.4f}, bound {t['k2_bound'][0]:.4f}); max err K1 "
+        f"{e1:.3g} K2 {e2:.3g}")
+    return t, e1, e2, args, kern6
+
+
 def kernel_phase(graph, dev, flush):
     """K1 and K2 on random messages over the flagship layout and the hub,
     and on whole and split nodes at several widths."""
@@ -234,13 +310,11 @@ def kernel_phase(graph, dev, flush):
         res["csr_dmsg"]["err"] = max(res["csr_dmsg"]["err"], e2)
 
     for name, (ptr, n_rows, segs) in cases.items():
-        n = ptr.numel() - 1
-        msg = make_messages(n_rows, f, dev, gen)
-        rows = int(ptr[-1] - ptr[0])
-        e1, e2, args, kern6 = check_csr(msg, ptr, segs, gen, name)
+        t, e1, e2, args, kern6 = csr_case(name, ptr, n_rows, segs, f, dev,
+                                          gen, flush)
         record(e1, e2)
         if name == "hub":       # no atomics, a fixed order: the same bits
-            again = (csr_kernels.csr_moment_sketch(msg, ptr, True,
+            again = (csr_kernels.csr_moment_sketch(t["msg"], ptr, True,
                                                    segments=segs)
                      + (csr_kernels.csr_dmsg(*args, segments=segs),))
             first = kern6 + (csr_kernels.csr_dmsg(*args, segments=segs),)
@@ -248,51 +322,23 @@ def kernel_phase(graph, dev, flush):
             for x, y in zip(first, again):
                 if not torch.equal(x, y):
                     raise AssertionError("hub: two runs of K1/K2 differ")
-
-        t = {
-            "k1": time_cuda(lambda: csr_kernels.csr_moment_sketch(
-                msg, ptr, True, segments=segs), flush),
-            "k1_no_ties": time_cuda(lambda: csr_kernels.csr_moment_sketch(
-                msg, ptr, False, segments=segs), flush),
-            "k1_plain": time_cuda(lambda: csr_kernels.csr_moment_sketch_plain(
-                msg, ptr, True), flush),
-            "k2": time_cuda(lambda: csr_kernels.csr_dmsg(
-                *args, segments=segs), flush),
-            "k2_plain": time_cuda(lambda: csr_kernels.csr_dmsg_plain(*args),
-                                  flush),
-        }
-        # K1 reads the real rows and the table's pointers; K2 reads the real
-        # rows, the row-to-node array and the node fields and writes every
-        # row of d_msg, the rows of no node as 0
-        k1_bound = bound_ms(rows * f * 4 + (segs.n_seg + 1) * 4
-                            + 6 * n * f * 4, 7 * rows * f)
-        k1_bound4 = bound_ms(rows * f * 4 + (segs.n_seg + 1) * 4
-                             + 4 * n * f * 4, 5 * rows * f)
-        k2_bound = bound_ms(rows * f * 4 + n_rows * 4 + 6 * n * f * 4
-                            + n_rows * f * 4, 6 * rows * f)
-        log(f"kernels[{name}] N={n} E={n_rows} rows={rows} F={f}, "
-            f"{segs.n_seg} segments, {segs.n_split} split nodes: "
-            f"K1 ties {t['k1']:.4f} ms (plain {t['k1_plain']:.4f}, bound "
-            f"{k1_bound[0]:.4f}), K1 no ties {t['k1_no_ties']:.4f} ms (bound "
-            f"{k1_bound4[0]:.4f}), K2 {t['k2']:.4f} ms (plain "
-            f"{t['k2_plain']:.4f}, bound {k2_bound[0]:.4f}); max err K1 "
-            f"{e1:.3g} K2 {e2:.3g}"
-            + ("; two runs equal" if name == "hub" else ""))
-        if name == "slice":
-            comp = segment_reduce_ms(msg, ptr, flush)
+            log("kernels[hub] two runs of K1 and K2 give the same bits")
+            res["csr_moment_sketch"].update(hub_ms=t["k1"],
+                                            hub_bound_ms=t["k1_bound"][0])
+            res["csr_dmsg"].update(hub_ms=t["k2"],
+                                   hub_bound_ms=t["k2_bound"][0])
+        else:
+            comp = segment_reduce_ms(t["msg"], ptr, flush)
             log(f"kernels[slice] four torch.segment_reduce calls (sum, sum "
                 f"of squares, max, min; no tie counts; not one library "
                 f"call): {comp:.4f} ms")
             res["csr_moment_sketch"].update(
-                ms=t["k1"], plain_ms=t["k1_plain"], bound=k1_bound,
-                ms_no_ties=t["k1_no_ties"], bound_no_ties_ms=k1_bound4[0],
+                ms=t["k1"], plain_ms=t["k1_plain"], bound=t["k1_bound"],
+                ms_no_ties=t["k1_no_ties"],
+                bound_no_ties_ms=t["k1_bound4"][0],
                 segment_reduce_composition_ms=comp)
             res["csr_dmsg"].update(ms=t["k2"], plain_ms=t["k2_plain"],
-                                   bound=k2_bound)
-        else:
-            res["csr_moment_sketch"].update(hub_ms=t["k1"],
-                                            hub_bound_ms=k1_bound[0])
-            res["csr_dmsg"].update(hub_ms=t["k2"], hub_bound_ms=k2_bound[0])
+                                   bound=t["k2_bound"])
 
     # whole and split nodes, ties across segment boundaries, 12 rows of no
     # node, at widths whose rows start on 4-, 8- and 16-byte boundaries;
@@ -757,6 +803,217 @@ def entry_phase(dev):
         f"diff to CPU {err:.3g}")
 
 
+def cli_config(cli, name):
+    with open(os.path.join(cli.CONFIG_DIR, name)) as f:
+        return json.load(f)
+
+
+def widths(net):
+    """Message width T * Ft of the first layers and of the last."""
+    def w(divide):
+        return net['towers'] * (net['hidden_dim'] // net['towers'] if divide
+                                else net['hidden_dim'])
+    return w(net['divide_input_first']), w(net['divide_input_last'])
+
+
+def pipeline_batches():
+    """Each CLI's JSON config, a dataset and its first training batch at
+    full size: the ZINC CLI's synthetic dataset (its seed, batch 128, epoch
+    0's shuffle) and an MNIST-shaped one (128 synthetic graphs of 75
+    superpixels, k = 8 neighbours: 9,600 nodes, 76,800 edges)."""
+    out = {}
+    zcfg = cli_config(main_molecules, ZINC_CONFIG)
+    p = zcfg['params']
+    zds = ZincDataset.synthetic(**main_molecules.SYNTHETIC, seed=p['seed'])
+    out['zinc'] = (zcfg, zds) + next(batch_iterator(
+        zds.train, p['batch_size'], p['seed'], shuffle=True))
+    mcfg = cli_config(main_superpixels, MNIST_CONFIG)
+    p = mcfg['params']
+    mds = SuperpixelsDataset.synthetic(n_train=p['batch_size'], n_val=1,
+                                       n_test=1, seed=p['seed'], n_sp=75)
+    out['mnist'] = (mcfg, mds) + next(batch_iterator(
+        mds.train, p['batch_size'], p['seed'], shuffle=True))
+    return out
+
+
+def pipeline_kernel_phase(batches, dev, flush):
+    """K1 (with and without ties) and K2 against their plain versions on
+    the first batch of each CLI at the message widths of its config's
+    layers, timed beside their byte bounds."""
+    gen = torch.Generator().manual_seed(3)
+    res = {"csr_moment_sketch": {}, "csr_dmsg": {}}
+    err = [0.0, 0.0]
+    for kind, (cfg, _, graph, _) in batches.items():
+        layout = csr_layout(graph.edge_ptr.to(dev), graph.edge_mask.to(dev),
+                            max_in_degree=graph.max_in_degree)
+        log(f"kernels[{kind} batch] {int(graph.graph_mask.sum())} graphs, "
+            f"{int(graph.node_mask.sum())} nodes, "
+            f"{int(graph.edge_mask.sum())} edges, largest in-degree "
+            f"{graph.max_in_degree}: {layout.segments.n_split} nodes split "
+            f"over {layout.segments.n_part} segments")
+        for f in sorted(set(widths(cfg['net_params']))):
+            name = f"{kind} F={f}"
+            t, e1, e2, _, _ = csr_case(name, layout.ptr, graph.n_edge_pad,
+                                       layout.segments, f, dev, gen, flush)
+            err = [max(err[0], e1), max(err[1], e2)]
+            res["csr_moment_sketch"][name] = dict(
+                ms=t["k1"], bound_ms=t["k1_bound"][0],
+                ms_no_ties=t["k1_no_ties"],
+                bound_no_ties_ms=t["k1_bound4"][0], plain_ms=t["k1_plain"])
+            res["csr_dmsg"][name] = dict(ms=t["k2"], bound_ms=t["k2_bound"][0],
+                                         plain_ms=t["k2_plain"])
+    return res, err
+
+
+def cli_phase(kind, cli, argv, config, card):
+    """One CLI run on the card through ``cli.main``: the training loss
+    falls from the first epoch to the last, the "Best val" line prints with
+    a finite metric, and the kernels launched exactly 4 K1 and 4 K2 times
+    per train step, 4 K1 per evaluation batch and no K3/K4.  Returns the
+    launch counts and the per-epoch readings."""
+    p, n_layers = config['params'], config['net_params']['L']
+    epochs = int(argv[argv.index('--epochs') + 1])
+    sizes = cli.SYNTHETIC
+    eval_batches = epochs * sum(-(-sizes[k] // p['batch_size'])
+                                for k in ('n_val', 'n_test'))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'metrics.jsonl')
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        fk.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            best = cli.main(argv + ['--metrics_path', path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fk.launch_counts()
+        with open(path) as f:
+            hist = [json.loads(line) for line in f]
+    for line in out.getvalue().splitlines():
+        log(f"  {kind} cli| {line}")
+    steps = sum(h['train_steps'] for h in hist)
+    want = {"csr_moment_sketch": n_layers * (steps + eval_batches),
+            "csr_dmsg": n_layers * steps, "csr_pretrans_sketch": 0,
+            "csr_pretrans_dmsg": 0}
+    if counts != want:
+        raise AssertionError(f"{kind} cli launches {counts}, expected {want} "
+                             f"({steps} train steps, {eval_batches} "
+                             "evaluation batches)")
+    if len(hist) != epochs or not hist[-1]['train_loss'] < hist[0][
+            'train_loss']:
+        raise AssertionError(f"{kind} cli: train loss did not fall: "
+                             f"{[h['train_loss'] for h in hist]}")
+    if "Best val" not in out.getvalue() or not math.isfinite(
+            best['val_metric']):
+        raise AssertionError(f"{kind} cli: no finite best val metric")
+    train_s = sum(h['train_s'] for h in hist)
+    row = dict(
+        epochs=epochs, wall_s=wall,
+        epoch_s=[h['epoch_s'] for h in hist],
+        train_steps=steps, eval_batches=eval_batches,
+        steps_per_s=steps / train_s,
+        collate_share=sum(h['collate_s'] for h in hist) / train_s,
+        sync_share=sum(h['sync_s'] for h in hist) / train_s,
+        train_loss=[h['train_loss'] for h in hist],
+        best_val=best['val_metric'], launches=counts)
+    log(f"pipeline[{kind}] {epochs} epochs in {wall:.2f} s on {card}: "
+        f"seconds per epoch {[round(x, 3) for x in row['epoch_s']]}; "
+        f"{steps} train steps at {row['steps_per_s']:.2f} steps/s of the "
+        f"training passes; batch_iterator collation "
+        f"{row['collate_share']:.3f} and the per-step loss read "
+        f"{row['sync_share']:.3f} of them; train loss "
+        f"{[round(x, 5) for x in row['train_loss']]}; best val "
+        f"{best['val_metric']:.4f}; launches {counts} = {n_layers} x "
+        f"({steps} steps + {eval_batches} evaluation batches) for K1, "
+        f"{n_layers} x {steps} for K2")
+    return row
+
+
+def trainer_step_phase(kind, cli, config, ds, records, dev):
+    """The first train step of the CLI's configuration through
+    ``RealworldTrainer.run_epoch`` on the same weights and the same batch
+    of ``records``, on the card and on the CPU: the loss within LOSS_RTOL
+    and every gradient within GRAD_TOL of its largest entry.  A gradient
+    that is zero in exact arithmetic holds float noise only: a bias added
+    before a batch norm, where graph-norm scales every node alike (a batch
+    of graphs of one size, as the superpixel batch is).  So a tensor's
+    scale is at least ZERO_GRAD_FLOOR of the largest gradient entry of the
+    model."""
+    net, p = config['net_params'], config['params']
+    cpu_model, fwd = cli.make_model(net, ds, 'cpu')
+    model, _ = cli.make_model(net, ds, dev)
+    model.load_state_dict(cpu_model.state_dict())
+    loss_fn = type(model).loss
+    losses = {}
+    for where, m in (('card', model), ('cpu', cpu_model)):
+        trainer = RealworldTrainer(m, loss_fn, cli.make_config(p),
+                                   forward_args=fwd,
+                                   device=dev if where == 'card' else 'cpu')
+        losses[where], _ = trainer.run_epoch(records[:p['batch_size']], True,
+                                             p['seed'])
+    if not abs(losses['card'] - losses['cpu']) <= LOSS_RTOL * abs(
+            losses['cpu']):
+        raise AssertionError(f"{kind} trainer step: loss {losses}")
+    worst = 0.0
+    floor = ZERO_GRAD_FLOOR * max(float(b.grad.abs().max())
+                                  for b in cpu_model.parameters())
+    for (k, a), b in zip(model.named_parameters(), cpu_model.parameters()):
+        scale = max(float(b.grad.abs().max()), floor)
+        r = float((a.grad.cpu() - b.grad).abs().max()) / scale
+        worst = max(worst, r)
+        if r > GRAD_TOL:
+            raise AssertionError(f"{kind} trainer step: gradient {k} {r:.3g}")
+    log(f"trainer[{kind}] first step of the CLI config on the card matches "
+        f"the CPU: loss {losses['card']:.6f} vs {losses['cpu']:.6f}, worst "
+        f"gradient error of its max {worst:.3g} (tolerance {GRAD_TOL})")
+    return dict(loss_card=losses['card'], loss_cpu=losses['cpu'],
+                worst_grad=worst)
+
+
+def resume_phase(dev):
+    """Two epochs, then a fresh trainer resumes from latest.ckpt to three,
+    against three straight epochs, on a small ZINC configuration with
+    dropout (its generator's state is in the checkpoint).  On the card the
+    embedding backward and ``index_add_`` add in an order that can change
+    from run to run, so the histories agree within RESUME_RTOL, not bit for
+    bit."""
+    ds = ZincDataset.synthetic(n_train=64, n_val=16, n_test=16, seed=0)
+    net = dict(num_atom_type=ds.num_atom_type, num_bond_type=ds.num_bond_type,
+               hidden_dim=16, out_dim=16, n_layers=2,
+               aggregators=FLAGSHIP['aggregators'],
+               scalers=FLAGSHIP['scalers'], avg_d=ds.avg_d(), towers=2,
+               divide_input_first=False, edge_feat=True, edge_dim=8,
+               dropout=0.1, in_feat_dropout=0.1, device=dev, seed=1)
+
+    def fwd(g):
+        return g, g.node_feats.squeeze(-1), g.edge_feats.squeeze(-1)
+
+    def fit(ck, resume, epochs):
+        cfg = PipelineConfig(epochs=epochs, batch_size=32, init_lr=5e-3,
+                             checkpoint_dir=ck, resume=resume)
+        trainer = RealworldTrainer(PNANetMolecules(**net),
+                                   PNANetMolecules.loss, cfg,
+                                   forward_args=fwd, device=dev)
+        return trainer.fit(ds, log_fn=lambda s: None)[2]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        straight = fit(os.path.join(tmp, 'a'), False, 3)
+        fit(os.path.join(tmp, 'b'), False, 2)
+        resumed = fit(os.path.join(tmp, 'b'), True, 3)
+    if [h['epoch'] for h in resumed] != [2]:
+        raise AssertionError("resume did not start at epoch 2")
+    keys = ('train_loss', 'val_loss', 'val_metric', 'test_metric', 'lr')
+    worst = max(abs(resumed[0][k] - straight[2][k]) / abs(straight[2][k])
+                for k in keys)
+    if worst > RESUME_RTOL:
+        raise AssertionError(f"resumed epoch 2 differs by {worst:.3g}: "
+                             f"{resumed[0]} vs {straight[2]}")
+    log(f"resume: epoch 2 after a resume from latest.ckpt matches three "
+        f"straight epochs on the card: worst relative difference {worst:.3g}"
+        f" (tolerance {RESUME_RTOL}) over {', '.join(keys)}")
+    return worst
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -781,6 +1038,11 @@ def main():
     flush = flush_buffer(dev)
     k = kernel_phase(graph, dev, flush)
     k.update(fused_kernel_phase(graph, dev, flush))
+    batches = pipeline_batches()
+    pk, perr = pipeline_kernel_phase(batches, dev, flush)
+    k["csr_moment_sketch"]["err"] = max(k["csr_moment_sketch"]["err"],
+                                        perr[0])
+    k["csr_dmsg"]["err"] = max(k["csr_dmsg"]["err"], perr[1])
     del flush
 
     state = PNANetMolecules(
@@ -816,6 +1078,16 @@ def main():
             f"{b['peak_mib']:.1f} MiB")
     entry_phase(dev)
 
+    clis = {'zinc': (main_molecules, ['--synthetic', '--epochs', '3']),
+            'mnist': (main_superpixels, ['--synthetic', '--epochs', '2'])}
+    pipeline = {kind: cli_phase(kind, cli, argv, batches[kind][0], card)
+                for kind, (cli, argv) in clis.items()}
+    for kind, (cli, _) in clis.items():
+        cfg, ds = batches[kind][:2]
+        pipeline[kind]['first_step'] = trainer_step_phase(
+            kind, cli, cfg, ds, ds.train, dev)
+    resume_worst = resume_phase(dev)
+
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         r = k[name]
@@ -827,8 +1099,16 @@ def main():
                "bound_by": r["bound"][1], "library_ms": None}
         row.update({key: val for key, val in r.items()
                     if key not in ("err", "ms", "plain_ms", "bound")})
+        row["pipeline_launches"] = {kind: pr["launches"][name]
+                                    for kind, pr in pipeline.items()}
+        if name in pk:
+            row["pipeline_shapes"] = pk[name]
         kernels.append(row)
-    log(json.dumps({"kernels": kernels, "card": card}))
+    summary = {kind: {key: val for key, val in pr.items()
+                      if key != "launches"}
+               for kind, pr in pipeline.items()}
+    log(json.dumps({"kernels": kernels, "card": card, "pipeline": summary,
+                    "resume_worst_rel_diff": resume_worst}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

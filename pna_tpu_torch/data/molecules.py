@@ -1,17 +1,23 @@
-"""Synthetic ZINC records and their collation into a CSR ``Graph``.
+"""ZINC records, their collation into a CSR ``Graph``, and the per-epoch
+batch iterator.
 
 Counterpart of ``pna_tpu/data/molecules.py``: ``synthetic_zinc`` draws the
 same numpy random stream, so one seed gives the same records in both
-packages; ``collate_records`` batches them without degree bucketing.
-Loading the real ZINC pickles (``ZincDataset.from_dir``) and
-``batch_iterator`` are ROADMAP Queue 1 item 2's remainder.
+packages; ``ZincDataset.from_dir`` reads the real split pickles and their
+``.index`` files; ``collate_records`` and ``batch_iterator`` batch records
+without degree bucketing (the bucketed layout and ``derive_bucket_caps``
+are ROADMAP Queue 1 item 12).  Every batch is a receiver-sorted CSR
+``Graph`` on the CPU; the trainer moves it to the card once.
 
 ZINC constants: num_atom_type=28, num_bond_type=4.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+import csv
+import os
+import pickle
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +40,24 @@ def molecule_to_record(mol: dict) -> dict:
                 receivers=recv.astype(np.int32),
                 edge_feats=edge_type[:, None],
                 label=float(mol['logP_SA_cycle_normalized']))
+
+
+def load_zinc_split(data_dir: str, split: str,
+                    num_graphs: Optional[int] = None) -> List[dict]:
+    """Records of one ZINC split: ``{split}.pickle`` (a list of molecule
+    dicts of torch tensors) reordered and subset by the first row of
+    ``{split}.index`` when that file exists."""
+    with open(os.path.join(data_dir, f"{split}.pickle"), 'rb') as f:
+        data = pickle.load(f)
+    idx_path = os.path.join(data_dir, f"{split}.index")
+    if os.path.exists(idx_path):
+        with open(idx_path) as f:
+            data_idx = [list(map(int, idx)) for idx in csv.reader(f)]
+        data = [data[i] for i in data_idx[0]]
+    if num_graphs is not None and len(data) != num_graphs:
+        raise ValueError(f"{split}: {len(data)} graphs, expected "
+                         f"{num_graphs}")
+    return [molecule_to_record(m) for m in data]
 
 
 def synthetic_zinc(n_graphs: int, seed: int = 0,
@@ -74,6 +98,13 @@ class ZincDataset:
         self.num_bond_type = num_bond_type
 
     @classmethod
+    def from_dir(cls, data_dir: str):
+        """The real ZINC splits (train/val/test pickles and index files)."""
+        return cls(load_zinc_split(data_dir, 'train'),
+                   load_zinc_split(data_dir, 'val'),
+                   load_zinc_split(data_dir, 'test'))
+
+    @classmethod
     def synthetic(cls, n_train=200, n_val=40, n_test=40, seed=0):
         return cls(synthetic_zinc(n_train, seed),
                    synthetic_zinc(n_val, seed + 10_000),
@@ -103,3 +134,34 @@ def collate_records(records: Sequence[dict],
     for i, rec in enumerate(records):
         labels[i] = rec.get('label', 0)
     return g, torch.from_numpy(labels)
+
+
+def batch_iterator(records: List[dict], batch_size: int, seed: int,
+                   shuffle: bool = True, node_pad_multiple: int = 64,
+                   edge_pad_multiple: int = 256
+                   ) -> Iterator[Tuple[Graph, torch.Tensor]]:
+    """Yield (graph, labels) minibatches on the CPU, in the order of
+    ``np.random.RandomState(seed)`` when ``shuffle``.
+
+    Every batch holds ``batch_size`` graphs: a short last batch is filled
+    from the head of the record list and its fillers get ``graph_mask``
+    False.  Nodes (with the one padding node) are padded to a multiple of
+    ``node_pad_multiple`` and edges to a multiple of ``edge_pad_multiple``,
+    so batches come in few shapes."""
+    order = np.arange(len(records))
+    if shuffle:
+        np.random.RandomState(seed).shuffle(order)
+    for i in range(0, len(order), batch_size):
+        chunk = [records[j] for j in order[i:i + batch_size]]
+        n_valid = len(chunk)
+        if n_valid < batch_size:
+            need = batch_size - n_valid
+            chunk = chunk + [records[k % len(records)] for k in range(need)]
+        n_nodes = sum(r['node_feats'].shape[0] for r in chunk) + 1
+        n_edges = sum(len(r['senders']) for r in chunk)
+        npad = -(-n_nodes // node_pad_multiple) * node_pad_multiple
+        epad = max(-(-n_edges // edge_pad_multiple) * edge_pad_multiple,
+                   edge_pad_multiple)
+        g, labels = collate_records(chunk, n_node_pad=npad, n_edge_pad=epad)
+        g.graph_mask[n_valid:] = False
+        yield g, labels

@@ -8,7 +8,10 @@ and its ``kernel='pallas_fused'`` (``pna_tpu/ops/pallas_fused.py``) is
 ``kernel='csr_fused'`` (``pna_tpu_torch/ops/csr_fused.py``, kernels K3/K4).
 The math is the JAX layer's:
 
-* stacked tower parameters ``kernel_0 [T, in, out]``, ``bias_0 [T, out]``;
+* stacked tower parameters ``kernel_i [T, in_i, out_i]``, ``bias_i
+  [T, out_i]`` for each of the ``pretrans_layers`` and ``posttrans_layers``
+  (relu between layers: on the messages after the first pretrans layer,
+  after the scaler contraction in the posttrans);
 * a split-kernel pretrans: ``msg = src K_src + dst K_dst (+ e K_e) + b``, the
   concat never built; per-tower contractions are one matmul with a
   block-diagonal weight (``_ein``), or one matmul when every tower shares its
@@ -19,8 +22,8 @@ The math is the JAX layer's:
 * a posttrans with the scaler axis folded into the output: the aggregator
   tensor Z [N, A, T*Ft] meets a weight laid out to match it, and the S scaler
   weights apply to the narrower [N, T, O, S] result;
-* graph-norm, masked batch-norm, the ``mixing`` linear, leaky_relu(0.01), and
-  the residual when ``in_dim == out_dim``.
+* graph-norm, masked batch-norm, dropout, the ``mixing`` linear,
+  leaky_relu(0.01), and the residual when ``in_dim == out_dim``.
 
 ``compute_dtype=torch.bfloat16`` rounds at the JAX layer's places: the layer
 input, every matmul operand (the products are then taken and summed in
@@ -30,10 +33,11 @@ message before the bank, the ``csr_fused`` inputs u, v, ef and ke, and the
 scaler contraction's operands.  Statistics, batch-norm, mixing and the
 residual stay float32.
 
-One pretrans and one posttrans layer (so the JAX fused backend's
-``pretrans_layers == 1`` condition holds by construction) and no dropout, as
-the flagship ZINC configuration runs; the port's ``Graph`` always carries
-the receiver-sorted ``edge_ptr`` both backends need.  The other backends and
+``csr_fused`` forms only the first pretrans layer inside its kernels, so it
+takes ``pretrans_layers=1`` only and raises ``ValueError`` otherwise, as the
+JAX fused backend does.  Dropout draws its mask from ``dropout_generator``
+(``nn/layers.py::Dropout``).  The port's ``Graph`` always carries the
+receiver-sorted ``edge_ptr`` both backends need.  The other backends and
 options raise ``NotImplementedError`` naming the ROADMAP item that ports
 them.
 """
@@ -48,7 +52,8 @@ from torch.nn import functional as F
 
 from pna_tpu_torch.device import DeviceLike, resolve_device
 from pna_tpu_torch.graph import Graph
-from pna_tpu_torch.nn.layers import dense, xavier_uniform_gain, zeros_init
+from pna_tpu_torch.nn.layers import (Dropout, dense, xavier_uniform_gain,
+                                     zeros_init)
 from pna_tpu_torch.nn.sparse import MaskedBatchNorm
 from pna_tpu_torch.ops import csr_bank, csr_fused
 from pna_tpu_torch.ops.scalers import SCALERS, scaler_weights
@@ -108,16 +113,34 @@ def _ein_shared(x, k, cdt=torch.float32):
     return (_round(x, cdt) @ kb).reshape(x.shape[:-1] + (T, fo))
 
 
-class StackedParams(nn.Module):
-    """One per-tower dense layer, stacked: kernel_0 [T, in, out], bias_0
-    [T, out] (xavier-uniform at gain 1/in, zero bias)."""
+def _mlp_dims(in_size, hidden, out, layers):
+    return ([in_size] + [hidden] * (layers - 1) + [out] if layers > 1
+            else [in_size, out])
 
-    def __init__(self, in_size: int, out_size: int, towers: int,
-                 generator: torch.Generator):
+
+class StackedParams(nn.Module):
+    """Per-tower dense layers, stacked: kernel_i [T, dims[i], dims[i+1]],
+    bias_i [T, dims[i+1]] (xavier-uniform at gain 1/dims[i], zero bias)."""
+
+    def __init__(self, dims, towers: int, generator: torch.Generator):
         super().__init__()
-        self.kernel_0 = nn.Parameter(xavier_uniform_gain(1.0 / in_size)(
-            (towers, in_size, out_size), generator))
-        self.bias_0 = nn.Parameter(zeros_init((towers, out_size), generator))
+        self.n = len(dims) - 1
+        for i in range(self.n):
+            setattr(self, f'kernel_{i}', nn.Parameter(
+                xavier_uniform_gain(1.0 / dims[i])(
+                    (towers, dims[i], dims[i + 1]), generator)))
+            setattr(self, f'bias_{i}', nn.Parameter(
+                zeros_init((towers, dims[i + 1]), generator)))
+
+    def layer(self, i):
+        return getattr(self, f'kernel_{i}'), getattr(self, f'bias_{i}')
+
+    def rest(self, x, cdt):
+        """Layers 1.. on x [..., T, F]: relu, then the next tower dense."""
+        for i in range(1, self.n):
+            k, b = self.layer(i)
+            x = _ein(torch.relu(x), k, cdt) + b
+        return x
 
 
 class PNALayerFused(nn.Module):
@@ -127,12 +150,19 @@ class PNALayerFused(nn.Module):
                  graph_norm: bool = False, batch_norm: bool = False,
                  towers: int = 1, divide_input: bool = True,
                  residual: bool = False, edge_features: bool = False,
-                 edge_dim: int = 0, kernel: str = 'csr', max_degree: int = 0,
+                 edge_dim: int = 0, dropout: float = 0.0,
+                 pretrans_layers: int = 1, posttrans_layers: int = 1,
+                 kernel: str = 'csr', max_degree: int = 0,
                  compute_dtype=None, tp_axis: Optional[str] = None,
                  device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout_generator: Optional[torch.Generator] = None):
         super().__init__()
         check_backend(kernel, compute_dtype, tp_axis)
+        if kernel == 'csr_fused' and pretrans_layers != 1:
+            raise ValueError("kernel='csr_fused' supports pretrans_layers=1 "
+                             "only: its kernels form the first pretrans "
+                             "layer's message")
         if not csr_bank.supports(aggregators):
             raise ValueError(f"kernel={kernel!r} supports aggregators "
                              f"{csr_bank.AGGS} (no 'identity'), got "
@@ -158,12 +188,15 @@ class PNALayerFused(nn.Module):
         self.fo = out_dim // towers
         fe = edge_dim if edge_features else 0
         A, S = len(self.aggregators), len(self.scalers)
-        self.pretrans = StackedParams(2 * self.ft + fe, self.ft, towers,
-                                      generator)
-        self.posttrans = StackedParams((A * S + 1) * self.ft, self.fo, towers,
-                                       generator)
+        self.pretrans = StackedParams(
+            _mlp_dims(2 * self.ft + fe, self.ft, self.ft, pretrans_layers),
+            towers, generator)
+        self.posttrans = StackedParams(
+            _mlp_dims((A * S + 1) * self.ft, self.fo, self.fo,
+                      posttrans_layers), towers, generator)
         if batch_norm:
             self.batchnorm_h = MaskedBatchNorm(towers * self.fo)
+        self.dropout = Dropout(dropout, dropout_generator)
         self.mixing = dense(towers * self.fo, out_dim,
                             xavier_uniform_gain(1.0 / out_dim), zeros_init,
                             generator)
@@ -188,7 +221,7 @@ class PNALayerFused(nn.Module):
         hb = h.to(cdt)
 
         # ---- pretrans: split-kernel first layer, no concat built ----
-        k0, b0 = self.pretrans.kernel_0, self.pretrans.bias_0
+        k0, b0 = self.pretrans.layer(0)
         k_src, k_dst = k0[:, :Ft], k0[:, Ft:2 * Ft]
         if self.kernel == 'csr_fused':
             # node halves only: the kernels form u[snd] + v[rcv] (+ e ke)
@@ -218,13 +251,13 @@ class PNALayerFused(nn.Module):
             if self.edge_features:
                 msg = msg + _ein_shared(e, k0[:, 2 * Ft:], cdt)
             # stored in the compute dtype; the bank widens it to float32
-            msg = (msg + b0).to(cdt)                        # [E, T, Ft]
+            msg = self.pretrans.rest(msg + b0, cdt).to(cdt)  # [E, T, Ft]
             Z = csr_bank.csr_raw_bank(msg.reshape(E, T * Ft), layout,
                                       self.aggregators)     # [N, A, T*Ft]
         w = scaler_weights(self.scalers, layout.deg, self.avg_d)   # [S, N]
 
         # ---- posttrans with the scaler axis folded into the output ----
-        kp, bp = self.posttrans.kernel_0, self.posttrans.bias_0
+        kp, bp = self.posttrans.layer(0)
         k_h = kp[:, :Ft]                                    # [T, Ft, Fo]
         # rows of kp per tower: [0:Ft] = h part; Ft + s*A*Ft + a*Ft + f
         k_agg = kp[:, Ft:].reshape(T, S, A, Ft, Fo)
@@ -238,13 +271,14 @@ class PNALayerFused(nn.Module):
         y = (_round(Z.reshape(N, A * T * Ft), cdt) @ W).reshape(N, T, Fo, S)
         out = out + torch.einsum('ntos,sn->nto', _round(y, cdt),
                                  _round(w, cdt)) + bp
-        out = out.reshape(N, T * Fo)
+        out = self.posttrans.rest(out, cdt).reshape(N, T * Fo)
 
         if self.graph_norm:
             out = out * graph.snorm_n
         if self.batch_norm:
             out = self.batchnorm_h(out, graph.node_mask)
-        out = F.leaky_relu(self.mixing(out), negative_slope=0.01)
+        out = F.leaky_relu(self.mixing(self.dropout(out)),
+                           negative_slope=0.01)
         if self.residual:
             out = h + out
         return out

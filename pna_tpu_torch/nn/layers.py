@@ -1,18 +1,27 @@
-"""Initialisers and the MLP readout.
+"""Initialisers, dropout, the dense layers, the GRU update and the MLP
+readout.
 
 Counterpart of ``pna_tpu/nn/layers.py`` (``xavier_uniform_gain``,
-``torch_linear_init``, ``torch_linear_bias_init``, ``MLPReadout``).  Each
-initialiser returns ``init(shape, generator) -> tensor`` and draws from the
-explicit ``torch.Generator`` on the CPU; kernel shapes are in the JAX layout
+``torch_linear_init``, ``torch_linear_bias_init``, ``get_activation``,
+``BatchNorm``, ``FCLayer``, ``MLP``, ``GRUUpdate``, ``MLPReadout``; Set2Set
+and ``S2SReadout`` are ROADMAP Queue 1 item 11).  Each initialiser returns
+``init(shape, generator) -> tensor`` and draws from the explicit
+``torch.Generator`` on the CPU; kernel shapes are in the JAX layout
 ``[..., in, out]``, and ``dense`` turns such a kernel into an ``nn.Linear``.
+
+``Dropout`` draws its mask from an explicit generator on the data's device
+(``F.dropout`` takes none), so a seeded run repeats and a checkpoint can
+carry the generator's state.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 
 def _uniform(shape, bound, generator):
@@ -56,6 +65,193 @@ def dense(in_size: int, out_size: int, kernel_init, bias_init,
         kernel_init((in_size, out_size), generator).t().contiguous())
     lin.bias = nn.Parameter(bias_init((out_size,), generator))
     return lin
+
+
+def get_activation(name) -> Optional[Callable]:
+    """Activation by name (the reference's SUPPORTED_ACTIVATION_MAP);
+    LeakyReLU has slope 0.01; ``None`` and ``'none'`` give None."""
+    if name is None or callable(name):
+        return name
+    table = {
+        'relu': torch.relu,
+        'sigmoid': torch.sigmoid,
+        'tanh': torch.tanh,
+        'elu': F.elu,
+        'selu': F.selu,
+        'glu': F.glu,
+        'leakyrelu': lambda x: F.leaky_relu(x, negative_slope=0.01),
+        'softplus': F.softplus,
+        'none': None,
+    }
+    key = name.lower()
+    if key not in table:
+        raise ValueError(f"Unhandled activation function: {name}")
+    return table[key]
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose mask comes from ``generator``: in training
+    mode an entry is kept where a uniform draw is >= p and scaled by
+    1/(1-p); eval mode and p = 0 return the input.  ``generator`` lives on
+    the device of the data (a CUDA generator for tensors on the card) and
+    may be shared by several modules, which then draw in call order."""
+
+    def __init__(self, p: float, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout rate {p} outside [0, 1)")
+        self.p, self.generator = p, generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return x * keep.to(x.dtype) / (1.0 - self.p)
+
+
+class BatchNorm(nn.Module):
+    """Batch normalisation over the leading axis with the JAX package's
+    flax semantics (momentum 0.1 in torch's convention, eps 1e-5): training
+    mode normalises with the biased batch variance and moves the running
+    variance towards that same biased variance (torch's BatchNorm1d would
+    move it towards the unbiased one); eval mode uses the running
+    statistics."""
+
+    def __init__(self, num_features: int, momentum: float = 0.1,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean = x.mean(0)
+            var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(1 - self.momentum).add_(
+                    self.momentum * mean)
+                self.running_var.mul_(1 - self.momentum).add_(
+                    self.momentum * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
+            + self.bias
+
+
+class FCLayer(nn.Module):
+    """Linear -> activation -> dropout -> batch-norm.  The kernel is
+    xavier-uniform at gain 1/in_size (``init_gain_inverse_in``, the
+    reference's default) or torch's Linear init; the bias starts at 0."""
+
+    def __init__(self, in_size: int, out_size: int,
+                 activation: Optional[str] = 'relu', dropout: float = 0.0,
+                 b_norm: bool = False, bias: bool = True,
+                 init_gain_inverse_in: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 dropout_generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        kernel_init = (xavier_uniform_gain(1.0 / in_size)
+                       if init_gain_inverse_in else torch_linear_init())
+        self.linear = dense(in_size, out_size, kernel_init, zeros_init,
+                            generator)
+        if not bias:
+            self.linear.bias = None
+        self.activation = get_activation(activation)
+        self.dropout = Dropout(dropout, dropout_generator)
+        self.b_norm = BatchNorm(out_size) if b_norm else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.linear(x)
+        if self.activation is not None:
+            h = self.activation(h)
+        h = self.dropout(h)
+        if self.b_norm is not None:
+            h = self.b_norm(h)
+        return h
+
+
+class MLP(nn.Module):
+    """A stack of FCLayers: ``layers - 1`` of width ``hidden_size`` with
+    ``mid_activation``, then one of ``out_size`` with ``last_activation``."""
+
+    def __init__(self, in_size: int, hidden_size: int, out_size: int,
+                 layers: int, mid_activation: str = 'relu',
+                 last_activation: Optional[str] = 'none',
+                 dropout: float = 0.0, mid_b_norm: bool = False,
+                 last_b_norm: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 dropout_generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        fcs, width = [], in_size
+        for _ in range(layers - 1):
+            fcs.append(FCLayer(width, hidden_size, mid_activation, dropout,
+                               mid_b_norm, generator=generator,
+                               dropout_generator=dropout_generator))
+            width = hidden_size
+        fcs.append(FCLayer(width, out_size, last_activation, dropout,
+                           last_b_norm, generator=generator,
+                           dropout_generator=dropout_generator))
+        self.fully_connected = nn.ModuleList(fcs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for fc in self.fully_connected:
+            x = fc(x)
+        return x
+
+
+class GRUUpdate(nn.Module):
+    """The GRU update shared between conv layers: one GRU cell per node.
+
+    ``forward(h, y)``: ``h`` [..., D] the previous node features, ``y`` the
+    conv output; both are zero-padded up to ``hidden_size``.  As in the
+    reference (and in the JAX package, whose flax cell takes the carry
+    first), the conv output is the hidden state and the previous features
+    the input: ``GRUCell(input=h, hx=y)``.  Parameters are drawn from the
+    generator, U(-1/sqrt(H), 1/sqrt(H)) as torch draws them.
+
+    flax's cell has no hidden bias for the r and z gates; torch's would add
+    to the input biases of the same gates, and train that sum at twice the
+    rate.  So the r and z thirds of ``bias_hh`` start at 0 and their
+    gradient is masked: the cell has exactly flax's parameters."""
+
+    def __init__(self, hidden_size: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.hidden_size = hidden_size
+        self.cell = nn.GRUCell(hidden_size, hidden_size, device="meta")
+        bound = 1.0 / math.sqrt(hidden_size)
+        for name, p in list(self.cell.named_parameters()):
+            setattr(self.cell, name,
+                    nn.Parameter(_uniform(p.shape, bound, generator)))
+        keep = torch.ones(3 * hidden_size)
+        keep[:2 * hidden_size] = 0.0
+        with torch.no_grad():
+            self.cell.bias_hh.mul_(keep)
+        self.register_buffer("_bias_hh_mask", keep, persistent=False)
+        self.cell.bias_hh.register_hook(
+            lambda g: g * self._bias_hh_mask.to(g.dtype))
+
+    def _pad(self, x):
+        if x.shape[-1] > self.hidden_size:
+            raise ValueError(f"GRU input width {x.shape[-1]} > hidden size "
+                             f"{self.hidden_size}")
+        return F.pad(x, (0, self.hidden_size - x.shape[-1]))
+
+    def forward(self, h: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        lead = h.shape[:-1]
+        h2 = self._pad(h.reshape(-1, h.shape[-1]))
+        y2 = self._pad(y.reshape(-1, y.shape[-1]))
+        return self.cell(h2, y2).reshape(lead + (self.hidden_size,))
 
 
 class MLPReadout(nn.Module):

@@ -1,0 +1,76 @@
+"""Evaluation metrics on numpy arrays.
+
+A copy of ``pna_tpu/train/metrics.py`` (which imports no JAX; the port keeps
+its own copy so that it loads nothing of ``pna_tpu``): MAE, the accuracy
+count, the class-averaged accuracy, the F1 scores and the binary ROC-AUC of
+the OGB evaluator."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def MAE(scores, targets, mask=None) -> float:
+    scores = np.asarray(scores).reshape(-1)
+    targets = np.asarray(targets).reshape(-1)
+    if mask is not None:
+        mask = np.asarray(mask).reshape(-1).astype(bool)
+        scores, targets = scores[mask], targets[mask]
+    return float(np.mean(np.abs(scores - targets)))
+
+
+def accuracy(scores, targets, mask=None) -> float:
+    """Classification accuracy, as a raw count in the reference
+    (metrics.py accuracy_MNIST_CIFAR returns #correct); we return the count so
+    epoch code can divide by #samples, same contract."""
+    pred = np.asarray(scores).argmax(axis=-1).reshape(-1)
+    targets = np.asarray(targets).reshape(-1)
+    if mask is not None:
+        mask = np.asarray(mask).reshape(-1).astype(bool)
+        pred, targets = pred[mask], targets[mask]
+    return float((pred == targets).sum())
+
+
+def accuracy_SBM(scores, targets, mask=None) -> float:
+    """Class-averaged accuracy (metrics.py accuracy_SBM)."""
+    pred = np.asarray(scores).argmax(axis=-1).reshape(-1)
+    targets = np.asarray(targets).reshape(-1)
+    if mask is not None:
+        mask = np.asarray(mask).reshape(-1).astype(bool)
+        pred, targets = pred[mask], targets[mask]
+    accs = []
+    for c in np.unique(targets):
+        sel = targets == c
+        accs.append(float((pred[sel] == c).mean()))
+    return float(np.mean(accs)) * 100.0
+
+
+def binary_f1_score(scores, targets, mask=None) -> float:
+    from sklearn.metrics import f1_score
+    pred = np.asarray(scores).argmax(axis=-1).reshape(-1)
+    targets = np.asarray(targets).reshape(-1)
+    if mask is not None:
+        mask = np.asarray(mask).reshape(-1).astype(bool)
+        pred, targets = pred[mask], targets[mask]
+    return float(f1_score(targets, pred, average='binary'))
+
+
+def weighted_f1_score(scores, targets, mask=None) -> float:
+    from sklearn.metrics import f1_score
+    pred = np.asarray(scores).argmax(axis=-1).reshape(-1)
+    targets = np.asarray(targets).reshape(-1)
+    if mask is not None:
+        mask = np.asarray(mask).reshape(-1).astype(bool)
+        pred, targets = pred[mask], targets[mask]
+    return float(f1_score(targets, pred, average='weighted'))
+
+
+def roc_auc(scores, targets, mask=None) -> float:
+    """Binary ROC-AUC over raw scores (OGB Evaluator for ogbg-molhiv)."""
+    from sklearn.metrics import roc_auc_score
+    scores = np.asarray(scores).reshape(-1)
+    targets = np.asarray(targets).reshape(-1)
+    if mask is not None:
+        mask = np.asarray(mask).reshape(-1).astype(bool)
+        scores, targets = scores[mask], targets[mask]
+    return float(roc_auc_score(targets, scores))

@@ -1,18 +1,30 @@
 """Carry weights from the JAX package into the port.
 
 ``from_jax(params, batch_stats)`` takes the flax ``params`` and
-``batch_stats`` trees of ``PNANetMolecules`` or of one ``PNALayerFused``,
-already turned into nested dicts of numpy arrays, and returns the port's
+``batch_stats`` trees of ``PNANetMolecules``, ``PNANetSuperpixels``, one
+``PNALayerFused`` or one of the building blocks of ``nn/layers.py``, already
+turned into nested dicts of numpy arrays, and returns the port's
 ``state_dict``.  Names map as follows (flax -> port):
 
-* ``embedding_h/embedding`` -> ``embedding_h.weight`` (same for ``_e``);
-* ``layer_i/pretrans/kernel_0`` -> ``layers.i.pretrans.kernel_0`` (stacked
-  tower kernels and biases keep their names and layout);
+* ``embedding_h/embedding`` -> ``embedding_h.weight`` (same for ``_e``); a
+  ``Dense`` embedding's ``embedding_h/kernel`` -> ``embedding_h.weight``,
+  transposed;
+* ``layer_i/pretrans/kernel_j`` -> ``layers.i.pretrans.kernel_j`` (stacked
+  tower kernels and biases of every layer j keep their names and layout);
 * ``layer_i/batchnorm_h/scale`` -> ``layers.i.batchnorm_h.weight``; the
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
 * ``layer_i/mixing/kernel`` -> ``layers.i.mixing.weight``, transposed;
 * ``MLP_layer/Dense_k/kernel`` -> ``MLP_layer.FC_layers.k.weight``,
-  transposed.
+  transposed;
+* ``FCLayer_k/Dense_0`` -> ``fully_connected.k.linear`` and
+  ``FCLayer_k/BatchNorm_0`` -> ``fully_connected.k.b_norm`` (an ``MLP``);
+* ``gru/GRUCell_0`` -> ``gru.cell``: flax's input denses ``ir``, ``iz``,
+  ``in`` (with bias) and hidden denses ``hr``, ``hz`` (no bias) and ``hn``
+  (with bias) become ``torch.nn.GRUCell``'s ``weight_ih``/``bias_ih`` and
+  ``weight_hh``/``bias_hh``, gates stacked in torch's order r, z, n, with
+  ``bias_hh`` zero for r and z.  The gate equations are the same:
+  r = s(x W_ir + b_ir + h W_hr), z likewise, n = tanh(x W_in + b_in
+  + r (h W_hn + b_hn)), h' = (1 - z) n + z h.
 
 Flax ``Dense`` kernels are [in, out]; ``nn.Linear`` keeps [out, in].
 """
@@ -28,34 +40,62 @@ import torch
 
 _LEAF = {'embedding': 'weight', 'kernel': 'weight', 'scale': 'weight',
          'mean': 'running_mean', 'var': 'running_var'}
+_IN_FC = {'Dense_0': 'linear', 'BatchNorm_0': 'b_norm'}
 
 
-def _flatten(tree: Mapping, prefix=()):
-    for k, v in tree.items():
-        if isinstance(v, Mapping):
-            yield from _flatten(v, prefix + (k,))
-        else:
-            yield prefix + (k,), v
-
-
-def _name(path) -> str:
+def _module_name(path) -> str:
     parts = []
-    for p in path[:-1]:
+    for i, p in enumerate(path):
+        if i and re.match(r'^FCLayer_\d+$', path[i - 1]) and p in _IN_FC:
+            parts.append(_IN_FC[p])
+            continue
         p = re.sub(r'^layer_(\d+)$', r'layers.\1', p)
         p = re.sub(r'^Dense_(\d+)$', r'FC_layers.\1', p)
+        p = re.sub(r'^FCLayer_(\d+)$', r'fully_connected.\1', p)
+        p = 'cell' if p == 'GRUCell_0' else p
         parts.append(p)
-    return '.'.join(parts + [_LEAF.get(path[-1], path[-1])])
+    return '.'.join(parts)
+
+
+def _gru(cell: Mapping, name: str, out: dict) -> None:
+    """torch GRUCell tensors of a flax GRUCell's parameter dict."""
+    def k(g):
+        return np.asarray(cell[g]['kernel'], np.float32).T      # [out, in]
+
+    def b(g):
+        return np.asarray(cell[g]['bias'], np.float32)
+
+    zeros = np.zeros_like(b('hn'))
+    out[f'{name}.weight_ih'] = torch.tensor(np.concatenate(
+        [k('ir'), k('iz'), k('in')]))
+    out[f'{name}.weight_hh'] = torch.tensor(np.concatenate(
+        [k('hr'), k('hz'), k('hn')]))
+    out[f'{name}.bias_ih'] = torch.tensor(np.concatenate(
+        [b('ir'), b('iz'), b('in')]))
+    out[f'{name}.bias_hh'] = torch.tensor(np.concatenate(
+        [zeros, zeros, b('hn')]))
+
+
+def _convert(tree: Mapping, prefix, out: dict) -> None:
+    for key, value in tree.items():
+        path = prefix + (key,)
+        if key == 'GRUCell_0':
+            _gru(value, _module_name(path), out)
+        elif isinstance(value, Mapping):
+            _convert(value, path, out)
+        else:
+            a = np.asarray(value, dtype=np.float32)
+            if key == 'kernel':            # flax Dense [in, out]
+                a = a.T
+            name = _module_name(prefix)
+            leaf = _LEAF.get(key, key)
+            out[f'{name}.{leaf}' if name else leaf] = torch.tensor(a)
 
 
 def from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
              ) -> "OrderedDict[str, torch.Tensor]":
     """The port's state_dict for flax ``params`` / ``batch_stats``."""
     out = OrderedDict()
-    trees = [params] + ([batch_stats] if batch_stats else [])
-    for tree in trees:
-        for path, value in _flatten(tree):
-            a = np.asarray(value, dtype=np.float32)
-            if path[-1] == 'kernel':       # flax Dense [in, out]
-                a = a.T
-            out[_name(path)] = torch.tensor(a)
+    for tree in [params] + ([batch_stats] if batch_stats else []):
+        _convert(tree, (), out)
     return out

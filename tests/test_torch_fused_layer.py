@@ -50,9 +50,11 @@ def _graphs(rng):
     return graphs
 
 
-def _run_both(kernel, divide_input, edge_features, cdt=torch.float32):
+def _run_both(kernel, divide_input, edge_features, cdt=torch.float32,
+              **layer_kw):
     """One training-mode forward and backward of loss = sum(out^2) through
-    the JAX layer and the port's layer on the same weights and inputs."""
+    the JAX layer and the port's layer on the same weights and inputs;
+    ``layer_kw`` reach both layers."""
     rng = np.random.RandomState(1)
     graphs = _graphs(rng)
     tg = batch_graphs(graphs, with_snorm=True)
@@ -67,7 +69,8 @@ def _run_both(kernel, divide_input, edge_features, cdt=torch.float32):
                         graph_norm=True, batch_norm=True, residual=True,
                         edge_features=edge_features,
                         kernel=JAX_KERNEL[kernel],
-                        compute_dtype=JAX_DTYPE[cdt], pallas_interpret=True)
+                        compute_dtype=JAX_DTYPE[cdt], pallas_interpret=True,
+                        **layer_kw)
     je = jnp.asarray(e) if edge_features else None
     var = jax.tree_util.tree_map(np.asarray, jl.init(
         {'params': jax.random.PRNGKey(0)}, jg, jnp.asarray(h), je,
@@ -87,7 +90,8 @@ def _run_both(kernel, divide_input, edge_features, cdt=torch.float32):
                        divide_input=divide_input, graph_norm=True,
                        batch_norm=True, residual=True,
                        edge_features=edge_features, edge_dim=FE,
-                       kernel=kernel, compute_dtype=cdt, device='cpu')
+                       kernel=kernel, compute_dtype=cdt, device='cpu',
+                       **layer_kw)
     tl.load_state_dict(from_jax(var['params'], var['batch_stats']))
     tl.train()
     ht = torch.from_numpy(h).requires_grad_(True)
@@ -110,9 +114,9 @@ def _run_both(kernel, divide_input, edge_features, cdt=torch.float32):
             (float(l_j), np.asarray(out_j)))
 
 
-def _check_f32(kernel, divide_input, edge_features):
+def _check_f32(kernel, divide_input, edge_features, **layer_kw):
     (l_t, out_t, pairs, stat_pairs), (l_j, out_j) = _run_both(
-        kernel, divide_input, edge_features)
+        kernel, divide_input, edge_features, **layer_kw)
     np.testing.assert_allclose(out_t, out_j, rtol=1e-4, atol=1e-4)
     g_tol = dict(rtol=2e-4, atol=2e-5)
     for k, g, w in pairs:
@@ -132,6 +136,25 @@ def test_fused_layer_matches_jax(divide_input, edge_features):
 def test_csr_fused_layer_matches_jax(divide_input, edge_features):
     """kernel='csr_fused' (K3/K4) against the JAX kernel='pallas_fused'."""
     _check_f32('csr_fused', divide_input, edge_features)
+
+
+@pytest.mark.parametrize("divide_input", [True, False])
+def test_two_pretrans_and_posttrans_layers_match_jax(divide_input):
+    """pretrans_layers=2 and posttrans_layers=2 on 'csr' against the JAX
+    'pallas' layer: kernel_1/bias_1 of both stacks, relu on the messages
+    between the pretrans layers and after the scaler contraction."""
+    _check_f32('csr', divide_input, True, pretrans_layers=2,
+               posttrans_layers=2)
+
+
+def test_csr_fused_takes_one_pretrans_layer():
+    with pytest.raises(ValueError, match="pretrans_layers=1"):
+        PNALayerFused(D, D, AGGS, SCALERS, AVG_D, kernel='csr_fused',
+                      pretrans_layers=2, device='cpu')
+    layer = PNALayerFused(D, D, AGGS, SCALERS, AVG_D, kernel='csr_fused',
+                          posttrans_layers=3, device='cpu')
+    assert {n for n, _ in layer.posttrans.named_parameters()} == {
+        'kernel_0', 'bias_0', 'kernel_1', 'bias_1', 'kernel_2', 'bias_2'}
 
 
 def rel_norm_err(got, want):

@@ -59,12 +59,13 @@ def _configs(edge_feat):
 JAX_KERNEL = {'csr': 'pallas', 'csr_fused': 'pallas_fused'}
 
 
-def _setup(edge_feat, n_graphs=6, kernel='csr', cdt=torch.float32):
+def _setup(edge_feat, n_graphs=6, kernel='csr', cdt=torch.float32,
+           **net_kw):
     recs = tmol.synthetic_zinc(n_graphs, seed=11)
     tg, tl = tmol.collate_records(recs)
     jg, jl = jmol.collate_records(jmol.synthetic_zinc(n_graphs, seed=11))
     avg_d = tmol.ZincDataset(recs, [], []).avg_d()
-    kw = dict(_configs(edge_feat), avg_d=avg_d)
+    kw = dict(_configs(edge_feat), avg_d=avg_d, **net_kw)
     jnet = JNet(**kw, kernel=JAX_KERNEL[kernel], pallas_interpret=True,
                 compute_dtype=jnp.bfloat16 if cdt == torch.bfloat16 else None)
     e_idx = jg.edge_feats.squeeze(-1) if edge_feat else None
@@ -86,8 +87,9 @@ def _jax_loss_fn(jnet, jg, jl, e_idx):
     return loss_fn
 
 
-def _check_net(edge_feat, kernel):
-    tg, tl, jg, jl, jnet, var, tnet, e_idx = _setup(edge_feat, kernel=kernel)
+def _check_net(edge_feat, kernel, **net_kw):
+    tg, tl, jg, jl, jnet, var, tnet, e_idx = _setup(edge_feat, kernel=kernel,
+                                                    **net_kw)
     (l_j, (out_j, stats_j)), g_j = jax.jit(jax.value_and_grad(
         _jax_loss_fn(jnet, jg, jl, e_idx), has_aux=True))(
             var['params'], var['batch_stats'])
@@ -123,6 +125,53 @@ def test_net_forward_loss_grads_match_jax(edge_feat):
 def test_csr_fused_net_matches_jax(edge_feat):
     """kernel='csr_fused' (K3/K4) against the JAX kernel='pallas_fused'."""
     _check_net(edge_feat, 'csr_fused')
+
+
+def test_gru_and_two_layer_mlps_net_matches_jax():
+    """gru_enable (one GRU shared between the layers, none after the last)
+    with pretrans_layers=2 and posttrans_layers=2, on 'csr' against the JAX
+    'pallas' net: forward, loss, every gradient (the GRU's in torch's gate
+    layout) and the eval-mode output, at the tolerances above."""
+    _check_net(True, 'csr', gru_enable=True, pretrans_layers=2,
+               posttrans_layers=2)
+
+
+@pytest.mark.parametrize("kw,item", [(dict(fused_towers=False), "item 10"),
+                                     (dict(remat=True), "item 6")])
+def test_unported_net_options_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        PNANetMolecules(**_configs(True), avg_d={'log': 1.0}, device='cpu',
+                        **kw)
+
+
+def test_net_dropout_follows_generator_and_mode():
+    """in_feat_dropout and dropout: eval mode gives the no-dropout output;
+    training repeats with the generator's seed and differs from the
+    no-dropout output."""
+    tg, tl, _, _, _, var, tnet, _ = _setup(True)
+    kw = dict(_configs(True), avg_d=tmol.ZincDataset(
+        tmol.synthetic_zinc(6, seed=11), [], []).avg_d())
+    drop = PNANetMolecules(**kw, dropout=0.3, in_feat_dropout=0.2,
+                           device='cpu', seed=4)
+    drop.load_state_dict(tnet.state_dict())
+    args = (tg, tg.node_feats.squeeze(-1), tg.edge_feats.squeeze(-1))
+    tnet.eval()
+    drop.eval()
+    with torch.no_grad():
+        assert torch.equal(drop(*args), tnet(*args))
+        drop.train()
+        tnet.train()
+        base = tnet(*args)
+        # training mode moves the batch-norm statistics (the shift of the
+        # next call): restore them before the second draw
+        before = {k: v.clone() for k, v in drop.state_dict().items()}
+        drop.generator.manual_seed(9)
+        a = drop(*args)
+        drop.load_state_dict(before)
+        drop.generator.manual_seed(9)
+        b = drop(*args)
+    assert torch.equal(a, b)
+    assert float((a - base).abs().max()) > 1e-3
 
 
 @pytest.mark.parametrize("kernel", ['csr', 'csr_fused'])
