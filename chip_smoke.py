@@ -51,7 +51,21 @@ Phases (any failure raises, so the script exits non-zero):
 8. the first train step of each CLI's config through the trainer on the
    card against the CPU (the ZINC batch; the MNIST-shaped batch);
 9. resume on the card: 2 epochs and a resume to 3 against 3 straight, on a
-   small ZINC configuration with dropout.
+   small ZINC configuration with dropout;
+10. the MolHIV slice: K1 (with and without ties) and K2 against their plain
+    versions on the first batch of the HIV CLI (F = 70) and of the PyG
+    example (F = 80), and on the HIV batch with an isolated atom (K1's max
+    and min 0 there, the bank's gradient finite on the card and equal to
+    the CPU's); ``main_HIV.main(['--synthetic', '--epochs', '3'])`` and
+    ``pyg_example.main(['--synthetic', '--epochs', '2'])`` at full width
+    with the checks of phase 7; the HIV config's first trainer step (dropout
+    0, the batch with the isolated atom) card against CPU; one synthetic
+    epoch of the CIFAR10 superpixel config; the card's routing of the
+    sparse bank: ``PNALayerSparse`` (edge features, 5 towers, identity and
+    softmax beside the kernels' aggregators) and ``PNAConvPyG`` (2 towers,
+    unclamped var) on the card, K1/K2 for the kernels' aggregators and
+    plain torch for the rest, against the same layers on the CPU, where
+    every aggregator takes the segment form.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -68,17 +82,22 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from pna_tpu_torch import entry
-from pna_tpu_torch.cli import main_molecules, main_superpixels
+from pna_tpu_torch.cli import (main_HIV, main_molecules, main_superpixels,
+                               pyg_example)
+from pna_tpu_torch.data.hiv import HIVDataset
 from pna_tpu_torch.data.molecules import (ZincDataset, batch_iterator,
                                           collate_records)
 from pna_tpu_torch.data.superpixels import SuperpixelsDataset
 from pna_tpu_torch.nn.nets import PNANetMolecules
-from pna_tpu_torch.ops import build, csr_kernels
+from pna_tpu_torch.nn.pyg import PNAConvPyG, PNANetPyGExample
+from pna_tpu_torch.nn.sparse import PNALayerSparse
+from pna_tpu_torch.ops import build, csr_bank, csr_kernels
 from pna_tpu_torch.ops import csr_fused_kernels as fk
-from pna_tpu_torch.ops.csr_bank import csr_layout
+from pna_tpu_torch.ops.csr_bank import csr_layout, layout_from_graph
 from pna_tpu_torch.ops.csr_kernels import SEG, CSRSegments, csr_segments
 from pna_tpu_torch.ops.timing import (card_line, flush_buffer, hub_case,
                                       make_messages, time_cuda)
@@ -146,6 +165,12 @@ ZERO_GRAD_FLOOR = 1e-3
 
 ZINC_CONFIG = 'molecules_graph_regression_pna_ZINC.json'
 MNIST_CONFIG = 'superpixels_graph_classification_pna_MNIST.json'
+CIFAR10_CONFIG = 'superpixels_graph_classification_pna_CIFAR10.json'
+HIV_CONFIG = 'molecules_graph_classification_PNA_HIV.json'
+# the PyG example has no JSON config: its flags' defaults
+# (cli/pyg_example.py) and its net's (nn/pyg.py::PNANetPyGExample)
+PYG_CONFIG = {'params': {'seed': 0, 'batch_size': 128},
+              'net_params': {'L': 4, 'hidden_dim': 80}}
 
 
 def log(*args):
@@ -817,23 +842,50 @@ def widths(net):
 
 
 def pipeline_batches():
-    """Each CLI's JSON config, a dataset and its first training batch at
-    full size: the ZINC CLI's synthetic dataset (its seed, batch 128, epoch
-    0's shuffle) and an MNIST-shaped one (128 synthetic graphs of 75
-    superpixels, k = 8 neighbours: 9,600 nodes, 76,800 edges)."""
+    """Each CLI's JSON config, a dataset, its first training batch at full
+    size and the message widths of its layers: the ZINC CLI's synthetic
+    dataset (its seed, batch 128, epoch 0's shuffle), an MNIST-shaped one
+    (128 synthetic graphs of 75 superpixels, k = 8 neighbours: 9,600 nodes,
+    76,800 edges), the HIV CLI's (128 synthetic molecules of 8 to 30 atoms)
+    and the PyG example's (the same molecules, its own shuffle, no filler
+    graphs)."""
     out = {}
     zcfg = cli_config(main_molecules, ZINC_CONFIG)
     p = zcfg['params']
     zds = ZincDataset.synthetic(**main_molecules.SYNTHETIC, seed=p['seed'])
     out['zinc'] = (zcfg, zds) + next(batch_iterator(
-        zds.train, p['batch_size'], p['seed'], shuffle=True))
+        zds.train, p['batch_size'], p['seed'], shuffle=True)) + (
+        widths(zcfg['net_params']),)
     mcfg = cli_config(main_superpixels, MNIST_CONFIG)
     p = mcfg['params']
     mds = SuperpixelsDataset.synthetic(n_train=p['batch_size'], n_val=1,
                                        n_test=1, seed=p['seed'], n_sp=75)
     out['mnist'] = (mcfg, mds) + next(batch_iterator(
-        mds.train, p['batch_size'], p['seed'], shuffle=True))
+        mds.train, p['batch_size'], p['seed'], shuffle=True)) + (
+        widths(mcfg['net_params']),)
+    hcfg = cli_config(main_HIV, HIV_CONFIG)
+    p = hcfg['params']
+    hds = HIVDataset.synthetic(**main_HIV.SYNTHETIC, seed=p['seed'])
+    out['hiv'] = (hcfg, hds) + next(batch_iterator(
+        hds.train, p['batch_size'], p['seed'], shuffle=True)) + (
+        (hcfg['net_params']['hidden_dim'],),)
+    p = PYG_CONFIG['params']
+    pds = HIVDataset.synthetic(**pyg_example.SYNTHETIC, seed=p['seed'])
+    out['pyg'] = (PYG_CONFIG, pds) + next(pyg_example.batches(
+        pds.train, p['batch_size'], np.random.RandomState(p['seed']))) + (
+        (PYG_CONFIG['net_params']['hidden_dim'],),)
     return out
+
+
+def with_isolated_atom(records):
+    """The records with one atom that no bond reaches appended to the first
+    molecule (as a salt's counter-ion is in OGB molecules); returns them
+    and that atom's node index in a collated batch."""
+    first = dict(records[0])
+    n = first['node_feats'].shape[0]
+    first['node_feats'] = np.concatenate([first['node_feats'],
+                                          first['node_feats'][:1]])
+    return [first] + list(records[1:]), n
 
 
 def pipeline_kernel_phase(batches, dev, flush):
@@ -843,7 +895,7 @@ def pipeline_kernel_phase(batches, dev, flush):
     gen = torch.Generator().manual_seed(3)
     res = {"csr_moment_sketch": {}, "csr_dmsg": {}}
     err = [0.0, 0.0]
-    for kind, (cfg, _, graph, _) in batches.items():
+    for kind, (cfg, _, graph, _, fs) in batches.items():
         layout = csr_layout(graph.edge_ptr.to(dev), graph.edge_mask.to(dev),
                             max_in_degree=graph.max_in_degree)
         log(f"kernels[{kind} batch] {int(graph.graph_mask.sum())} graphs, "
@@ -851,7 +903,7 @@ def pipeline_kernel_phase(batches, dev, flush):
             f"{int(graph.edge_mask.sum())} edges, largest in-degree "
             f"{graph.max_in_degree}: {layout.segments.n_split} nodes split "
             f"over {layout.segments.n_part} segments")
-        for f in sorted(set(widths(cfg['net_params']))):
+        for f in sorted(set(fs)):
             name = f"{kind} F={f}"
             t, e1, e2, _, _ = csr_case(name, layout.ptr, graph.n_edge_pad,
                                        layout.segments, f, dev, gen, flush)
@@ -865,12 +917,15 @@ def pipeline_kernel_phase(batches, dev, flush):
     return res, err
 
 
-def cli_phase(kind, cli, argv, config, card):
+def cli_phase(kind, cli, argv, config, card, best_val=None,
+              best_line="Best val"):
     """One CLI run on the card through ``cli.main``: the training loss
-    falls from the first epoch to the last, the "Best val" line prints with
-    a finite metric, and the kernels launched exactly 4 K1 and 4 K2 times
-    per train step, 4 K1 per evaluation batch and no K3/K4.  Returns the
-    launch counts and the per-epoch readings."""
+    falls from the first epoch to the last (finite after one epoch), the
+    ``best_line`` prints with a finite best validation metric
+    (``best_val(returned)``; the record's ``val_metric`` by default), and
+    the kernels launched exactly 4 K1 and 4 K2 times per train step, 4 K1
+    per evaluation batch and no K3/K4.  Returns the launch counts and the
+    per-epoch readings."""
     p, n_layers = config['params'], config['net_params']['L']
     epochs = int(argv[argv.index('--epochs') + 1])
     sizes = cli.SYNTHETIC
@@ -889,6 +944,7 @@ def cli_phase(kind, cli, argv, config, card):
         counts = fk.launch_counts()
         with open(path) as f:
             hist = [json.loads(line) for line in f]
+    best = best['val_metric'] if best_val is None else best_val(best)
     for line in out.getvalue().splitlines():
         log(f"  {kind} cli| {line}")
     steps = sum(h['train_steps'] for h in hist)
@@ -899,12 +955,12 @@ def cli_phase(kind, cli, argv, config, card):
         raise AssertionError(f"{kind} cli launches {counts}, expected {want} "
                              f"({steps} train steps, {eval_batches} "
                              "evaluation batches)")
-    if len(hist) != epochs or not hist[-1]['train_loss'] < hist[0][
-            'train_loss']:
+    losses = [h['train_loss'] for h in hist]
+    if (len(hist) != epochs or not all(map(math.isfinite, losses))
+            or (epochs > 1 and not losses[-1] < losses[0])):
         raise AssertionError(f"{kind} cli: train loss did not fall: "
-                             f"{[h['train_loss'] for h in hist]}")
-    if "Best val" not in out.getvalue() or not math.isfinite(
-            best['val_metric']):
+                             f"{losses}")
+    if best_line not in out.getvalue() or not math.isfinite(best):
         raise AssertionError(f"{kind} cli: no finite best val metric")
     train_s = sum(h['train_s'] for h in hist)
     row = dict(
@@ -915,7 +971,7 @@ def cli_phase(kind, cli, argv, config, card):
         collate_share=sum(h['collate_s'] for h in hist) / train_s,
         sync_share=sum(h['sync_s'] for h in hist) / train_s,
         train_loss=[h['train_loss'] for h in hist],
-        best_val=best['val_metric'], launches=counts)
+        best_val=best, launches=counts)
     log(f"pipeline[{kind}] {epochs} epochs in {wall:.2f} s on {card}: "
         f"seconds per epoch {[round(x, 3) for x in row['epoch_s']]}; "
         f"{steps} train steps at {row['steps_per_s']:.2f} steps/s of the "
@@ -923,7 +979,7 @@ def cli_phase(kind, cli, argv, config, card):
         f"{row['collate_share']:.3f} and the per-step loss read "
         f"{row['sync_share']:.3f} of them; train loss "
         f"{[round(x, 5) for x in row['train_loss']]}; best val "
-        f"{best['val_metric']:.4f}; launches {counts} = {n_layers} x "
+        f"{best:.4f}; launches {counts} = {n_layers} x "
         f"({steps} steps + {eval_batches} evaluation batches) for K1, "
         f"{n_layers} x {steps} for K2")
     return row
@@ -940,8 +996,8 @@ def trainer_step_phase(kind, cli, config, ds, records, dev):
     scale is at least ZERO_GRAD_FLOOR of the largest gradient entry of the
     model."""
     net, p = config['net_params'], config['params']
-    cpu_model, fwd = cli.make_model(net, ds, 'cpu')
-    model, _ = cli.make_model(net, ds, dev)
+    cpu_model, fwd = cli.make_model(net, ds, 'cpu', seed=p['seed'])
+    model, _ = cli.make_model(net, ds, dev, seed=p['seed'])
     model.load_state_dict(cpu_model.state_dict())
     loss_fn = type(model).loss
     losses = {}
@@ -951,23 +1007,177 @@ def trainer_step_phase(kind, cli, config, ds, records, dev):
                                    device=dev if where == 'card' else 'cpu')
         losses[where], _ = trainer.run_epoch(records[:p['batch_size']], True,
                                              p['seed'])
-    if not abs(losses['card'] - losses['cpu']) <= LOSS_RTOL * abs(
-            losses['cpu']):
-        raise AssertionError(f"{kind} trainer step: loss {losses}")
-    worst = 0.0
-    floor = ZERO_GRAD_FLOOR * max(float(b.grad.abs().max())
-                                  for b in cpu_model.parameters())
-    for (k, a), b in zip(model.named_parameters(), cpu_model.parameters()):
-        scale = max(float(b.grad.abs().max()), floor)
-        r = float((a.grad.cpu() - b.grad).abs().max()) / scale
-        worst = max(worst, r)
-        if r > GRAD_TOL:
-            raise AssertionError(f"{kind} trainer step: gradient {k} {r:.3g}")
+    worst = hold_step(f"{kind} trainer step", model, cpu_model, losses)
     log(f"trainer[{kind}] first step of the CLI config on the card matches "
         f"the CPU: loss {losses['card']:.6f} vs {losses['cpu']:.6f}, worst "
         f"gradient error of its max {worst:.3g} (tolerance {GRAD_TOL})")
     return dict(loss_card=losses['card'], loss_cpu=losses['cpu'],
                 worst_grad=worst)
+
+
+def hold_step(what, model, cpu_model, losses):
+    """The card's loss within LOSS_RTOL of the CPU's, and every gradient
+    finite and within GRAD_TOL of its scale (at least ZERO_GRAD_FLOOR of the
+    model's largest entry, see trainer_step_phase); returns the worst
+    gradient error."""
+    if not abs(losses['card'] - losses['cpu']) <= LOSS_RTOL * abs(
+            losses['cpu']):
+        raise AssertionError(f"{what}: loss {losses}")
+    worst = 0.0
+    floor = ZERO_GRAD_FLOOR * max(float(b.grad.abs().max())
+                                  for b in cpu_model.parameters())
+    for (k, a), b in zip(model.named_parameters(), cpu_model.parameters()):
+        if not (bool(torch.isfinite(a.grad).all())
+                and bool(torch.isfinite(b.grad).all())):
+            raise AssertionError(f"{what}: gradient {k} is not finite")
+        scale = max(float(b.grad.abs().max()), floor)
+        r = float((a.grad.cpu() - b.grad).abs().max()) / scale
+        worst = max(worst, r)
+        if r > GRAD_TOL:
+            raise AssertionError(f"{what}: gradient {k} {r:.3g}")
+    return worst
+
+
+def pyg_step_phase(ds, graph, labels, dev):
+    """The PyG example net's first step (its avg_deg, dropout 0) on its
+    first batch, card against CPU on the same weights, held as
+    trainer_step_phase holds the trainers' steps."""
+    avg_deg = pyg_example.avg_d_from_degree_hist(
+        pyg_example.degree_histogram(ds.train))
+    models, losses = {}, {}
+    for where in ('cpu', 'card'):
+        device = dev if where == 'card' else 'cpu'
+        m = PNANetPyGExample(avg_deg, dropout=0.0, device=device, seed=0)
+        # the weights and batch-norm statistics before the CPU's step (the
+        # statistics are the shift of the batch moments)
+        if where == 'cpu':
+            state = {k: v.clone() for k, v in m.state_dict().items()}
+        m.load_state_dict(state)
+        m.train()
+        g = graph.to(device)
+        loss = PNANetPyGExample.loss(m(g, g.node_feats), labels.to(device),
+                                     g.graph_mask)
+        loss.backward()
+        models[where], losses[where] = m, float(loss.detach())
+    worst = hold_step("pyg step", models['card'], models['cpu'], losses)
+    log(f"trainer[pyg] first step of the example net on the card matches the"
+        f" CPU: loss {losses['card']:.6f} vs {losses['cpu']:.6f}, worst "
+        f"gradient error of its max {worst:.3g} (tolerance {GRAD_TOL})")
+    return dict(loss_card=losses['card'], loss_cpu=losses['cpu'],
+                worst_grad=worst)
+
+
+def isolated_phase(config, ds, dev):
+    """K1 (with and without ties) and K2 against their plain versions on the
+    HIV CLI's batch with an isolated atom, at the config's width: K1's max
+    and min are 0 at that atom, as the segment reductions give; the CSR
+    bank's forward and message gradient on the card (K1 with ties, K2)
+    finite and equal to the CPU's (plain versions).  Returns (K1 error, K2
+    error, the batch's records)."""
+    net, p = config['net_params'], config['params']
+    recs, iso = with_isolated_atom(ds.train[:p['batch_size']])
+    graph, _ = collate_records(recs)
+    layout = layout_from_graph(graph.to(dev))
+    if float(layout.deg[iso]) != 0 or not bool(graph.node_mask[iso]):
+        raise AssertionError("isolated atom: not a real node of in-degree 0")
+    gen = torch.Generator().manual_seed(4)
+    f = net['hidden_dim']
+    msg = make_messages(graph.n_edge_pad, f, dev, gen)
+    e1, e2, _, kern6 = check_csr(msg, layout.ptr, layout.segments, gen,
+                                 "hiv isolated")
+    if not (bool((kern6[2][iso] == 0).all())
+            and bool((kern6[3][iso] == 0).all())):
+        raise AssertionError("isolated atom: K1's max or min is not 0")
+    aggs = tuple(net['aggregators'].split())
+    out = {}
+    for where in ('card', 'cpu'):
+        g = graph.to(dev if where == 'card' else 'cpu')
+        m = msg.to(g.edge_mask.device).detach().requires_grad_(True)
+        z = csr_bank.csr_raw_bank(m, layout_from_graph(g), aggs)
+        torch.sin(z).sum().backward()
+        out[where] = (z.detach().cpu(), m.grad.cpu())
+    (zc, dc), (zp, dp) = out['card'], out['cpu']
+    if not (bool(torch.isfinite(dc).all()) and bool(torch.isfinite(dp).all())
+            and torch.allclose(zc, zp, rtol=1e-5, atol=1e-5)
+            and torch.allclose(dc, dp, rtol=1e-4, atol=1e-5)):
+        raise AssertionError("isolated atom: the bank on the card differs "
+                             "from the CPU or is not finite")
+    log(f"kernels[hiv isolated] {int(graph.node_mask.sum())} nodes, atom "
+        f"{iso} of in-degree 0: K1 max/min 0 there; bank forward and message"
+        f" gradient finite, card vs CPU max diff "
+        f"{float((zc - zp).abs().max()):.3g}, {float((dc - dp).abs().max()):.3g};"
+        f" max err K1 {e1:.3g} K2 {e2:.3g}")
+    return e1, e2, recs
+
+
+def routing_phase(graph, dev):
+    """The sparse bank's routing on the card: ``PNALayerSparse`` (75 wide,
+    edge features, 5 towers, identity and softmax beside mean/max/min/std)
+    and ``PNAConvPyG`` (80 wide, 2 towers, edge features, PyG's unclamped
+    var) on the ZINC CLI's first batch, on the card (K1/K2 for the kernels'
+    aggregators, plain torch for the rest) against the same weights on the
+    CPU (every aggregator in the segment form): the output within rtol
+    1e-4, atol 1e-4 and every gradient (weights and input) held as a
+    trainer step's; one K1 and one K2 launch per tower (the towered PyG
+    messages go to K1 as one [E, T*F] call)."""
+    gen = torch.Generator().manual_seed(5)
+    n, e = graph.n_node_pad, graph.n_edge_pad
+    scalers = FLAGSHIP['scalers']
+    avg_d = {'log': 1.2, 'lin': 2.2}
+    cases = {
+        "PNALayerSparse": (75, 5, lambda device: PNALayerSparse(
+            75, 75, FLAGSHIP['aggregators'] + ('identity', 'softmax'),
+            scalers, avg_d, towers=5, edge_features=True, edge_dim=8,
+            batch_norm=True, residual=True, device=device)),
+        "PNAConvPyG": (80, 1, lambda device: PNAConvPyG(
+            80, 80, ('mean', 'var', 'max', 'std'), scalers, avg_d,
+            edge_dim=8, towers=2, divide_input=True, device=device)),
+    }
+    ef = torch.randn(e, 8, generator=gen)
+    res = {}
+    for name, (width, k1_calls, make) in cases.items():
+        h = torch.randn(n, width, generator=gen)
+        models, losses, outs, dh = {}, {}, {}, {}
+        for where in ('cpu', 'card'):
+            device = dev if where == 'card' else 'cpu'
+            m = make(device)
+            if where == 'cpu':
+                state = {k: v.clone() for k, v in m.state_dict().items()}
+            m.load_state_dict(state)
+            m.train()
+            g = graph.to(device)
+            x = h.to(device).detach().requires_grad_(True)
+            fk.reset_launch_counts()
+            out = m(g, x, ef.to(device))
+            loss = (torch.sin(out) * g.node_mask[:, None]).sum()
+            loss.backward()
+            if where == 'card':
+                torch.cuda.synchronize()
+                counts = fk.launch_counts()
+            models[where], losses[where] = m, float(loss.detach())
+            outs[where], dh[where] = out.detach().cpu(), x.grad.cpu()
+        want = {"csr_moment_sketch": k1_calls, "csr_dmsg": k1_calls,
+                "csr_pretrans_sketch": 0, "csr_pretrans_dmsg": 0}
+        if counts != want:
+            raise AssertionError(f"routing {name}: launches {counts}, "
+                                 f"expected {want}")
+        if not torch.allclose(outs['card'], outs['cpu'], rtol=1e-4,
+                              atol=1e-4):
+            raise AssertionError(f"routing {name}: output differs by "
+                                 f"{float((outs['card'] - outs['cpu']).abs().max())}")
+        worst = hold_step(f"routing {name}", models['card'], models['cpu'],
+                          losses)
+        r = float((dh['card'] - dh['cpu']).abs().max()) / float(
+            dh['cpu'].abs().max())
+        if r > GRAD_TOL:
+            raise AssertionError(f"routing {name}: input gradient {r:.3g}")
+        worst = max(worst, r)
+        res[name] = dict(worst_grad=worst, launches=counts)
+        log(f"routing[{name}] card (K1/K2 + plain) vs CPU (segment form): "
+            f"loss {losses['card']:.6f} vs {losses['cpu']:.6f}, output max "
+            f"diff {float((outs['card'] - outs['cpu']).abs().max()):.3g}, "
+            f"worst gradient error of its max {worst:.3g}; launches {counts}")
+    return res
 
 
 def resume_phase(dev):
@@ -1040,9 +1250,11 @@ def main():
     k.update(fused_kernel_phase(graph, dev, flush))
     batches = pipeline_batches()
     pk, perr = pipeline_kernel_phase(batches, dev, flush)
+    hcfg, hds = batches['hiv'][:2]
+    ierr1, ierr2, iso_recs = isolated_phase(hcfg, hds, dev)
     k["csr_moment_sketch"]["err"] = max(k["csr_moment_sketch"]["err"],
-                                        perr[0])
-    k["csr_dmsg"]["err"] = max(k["csr_dmsg"]["err"], perr[1])
+                                        perr[0], ierr1)
+    k["csr_dmsg"]["err"] = max(k["csr_dmsg"]["err"], perr[1], ierr2)
     del flush
 
     state = PNANetMolecules(
@@ -1078,14 +1290,35 @@ def main():
             f"{b['peak_mib']:.1f} MiB")
     entry_phase(dev)
 
-    clis = {'zinc': (main_molecules, ['--synthetic', '--epochs', '3']),
-            'mnist': (main_superpixels, ['--synthetic', '--epochs', '2'])}
-    pipeline = {kind: cli_phase(kind, cli, argv, batches[kind][0], card)
-                for kind, (cli, argv) in clis.items()}
-    for kind, (cli, _) in clis.items():
+    cifar = cli_config(main_superpixels, CIFAR10_CONFIG)
+    clis = {
+        'zinc': (main_molecules, ['--synthetic', '--epochs', '3'],
+                 batches['zinc'][0], {}),
+        'mnist': (main_superpixels, ['--synthetic', '--epochs', '2'],
+                  batches['mnist'][0], {}),
+        'hiv': (main_HIV, ['--synthetic', '--epochs', '3'], hcfg, {}),
+        'pyg': (pyg_example, ['--synthetic', '--epochs', '2'], PYG_CONFIG,
+                dict(best_val=lambda b: b[0], best_line="Best epoch val")),
+        'cifar10': (main_superpixels, [
+            '--synthetic', '--epochs', '1', '--config',
+            os.path.join(main_superpixels.CONFIG_DIR, CIFAR10_CONFIG)],
+            cifar, {}),
+    }
+    pipeline = {kind: cli_phase(kind, cli, argv, cfg, card, **kw)
+                for kind, (cli, argv, cfg, kw) in clis.items()}
+    for kind, cli in (('zinc', main_molecules), ('mnist', main_superpixels)):
         cfg, ds = batches[kind][:2]
         pipeline[kind]['first_step'] = trainer_step_phase(
             kind, cli, cfg, ds, ds.train, dev)
+    # dropout masks come from each device's own generator: the check runs
+    # the HIV config without dropout, on the batch with the isolated atom
+    no_drop = dict(hcfg, net_params=dict(hcfg['net_params'], dropout=0.0,
+                                         in_feat_dropout=0.0))
+    pipeline['hiv']['first_step'] = trainer_step_phase(
+        'hiv', main_HIV, no_drop, hds, iso_recs, dev)
+    pipeline['pyg']['first_step'] = pyg_step_phase(*batches['pyg'][1:4],
+                                                   dev)
+    routing = routing_phase(batches['zinc'][2], dev)
     resume_worst = resume_phase(dev)
 
     kernels = []
@@ -1108,7 +1341,8 @@ def main():
                       if key != "launches"}
                for kind, pr in pipeline.items()}
     log(json.dumps({"kernels": kernels, "card": card, "pipeline": summary,
-                    "resume_worst_rel_diff": resume_worst}))
+                    "resume_worst_rel_diff": resume_worst,
+                    "routing": routing}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

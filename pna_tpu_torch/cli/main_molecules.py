@@ -77,9 +77,10 @@ def merge_config(args) -> dict:
     return config
 
 
-def make_model(net: dict, ds, device: DeviceLike = None):
-    """The net of a config's ``net_params`` for dataset ``ds``, and
-    its forward adapter ``fwd(graph) -> model arguments``."""
+def make_model(net: dict, ds, device: DeviceLike = None, *, seed: int):
+    """The net of a config's ``net_params`` for dataset ``ds``, its weights
+    and dropout generator seeded with ``seed``, and its forward adapter
+    ``fwd(graph) -> model arguments``."""
     avg_d = ds.avg_d()
     model = PNANetMolecules(
         num_atom_type=ds.num_atom_type, num_bond_type=ds.num_bond_type,
@@ -96,7 +97,7 @@ def make_model(net: dict, ds, device: DeviceLike = None):
         edge_feat=net['edge_feat'], edge_dim=net['edge_dim'],
         pretrans_layers=net['pretrans_layers'],
         posttrans_layers=net['posttrans_layers'], gru_enable=net['gru'],
-        device=device)
+        device=device, seed=seed)
 
     def fwd(graph):
         if net['edge_feat']:
@@ -136,7 +137,7 @@ def main(argv=None, *, device: DeviceLike = None):
     else:
         ds = ZincDataset.from_dir(args.data_dir)
 
-    model, fwd = make_model(net, ds, device)
+    model, fwd = make_model(net, ds, device, seed=params['seed'])
     cfg = make_config(params, checkpoint_dir=args.checkpoint_dir,
                       resume=args.resume,
                       metrics_path=args.metrics_path,

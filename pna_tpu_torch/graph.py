@@ -11,7 +11,8 @@ list with the same conventions as the JAX package:
   range ``[edge_ptr[n], edge_ptr[n+1])`` and ``edge_ptr[-1] == n_edge_pad``
   (the CSR layout the port's kernels walk).
 
-Only the CSR layout is ported here; the ELL and degree-bucketed layouts of
+``sort_by_receiver`` restores that order (and ``edge_ptr``) after a caller
+has permuted the edges.  Only the CSR layout is ported here; the ELL and degree-bucketed layouts of
 the JAX package are later work (ROADMAP Queue 1 item 12).  Collation runs on
 the host in numpy and returns CPU tensors; ``Graph.to(device)`` moves a
 batch to the card once, before the steps that use it.
@@ -59,6 +60,19 @@ class Graph:
     def n_graph_pad(self) -> int:
         return self.graph_mask.shape[0]
 
+    def in_degrees(self, dtype=torch.float32) -> torch.Tensor:
+        """In-edges per node ([N_pad]); padded edges do not count."""
+        return _count(self.receivers, self.n_node_pad, self.edge_mask, dtype)
+
+    def out_degrees(self, dtype=torch.float32) -> torch.Tensor:
+        """Out-edges per node ([N_pad]); padded edges do not count."""
+        return _count(self.senders, self.n_node_pad, self.edge_mask, dtype)
+
+    def nodes_per_graph(self, dtype=torch.float32) -> torch.Tensor:
+        """Real nodes per graph ([G_pad])."""
+        return _count(self.node_graph_ids, self.n_graph_pad, self.node_mask,
+                      dtype)
+
     def to(self, device) -> "Graph":
         """A copy with every tensor on ``device``."""
         tensors = {f.name: getattr(self, f.name)
@@ -66,6 +80,12 @@ class Graph:
         return dataclasses.replace(self, **{
             k: v.to(device) for k, v in tensors.items()
             if isinstance(v, torch.Tensor)})
+
+
+def _count(ids: torch.Tensor, n: int, mask: torch.Tensor,
+           dtype) -> torch.Tensor:
+    w = mask.to(dtype)
+    return w.new_zeros(n).index_add_(0, ids, w)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -183,3 +203,41 @@ def batch_graphs(
         snorm_e=t(snorm_e) if with_snorm else None,
         max_in_degree=max_in_degree,
     )
+
+
+def build_graph(node_feats: np.ndarray, senders: np.ndarray,
+                receivers: np.ndarray,
+                edge_feats: Optional[np.ndarray] = None,
+                n_node_pad: Optional[int] = None,
+                n_edge_pad: Optional[int] = None) -> Graph:
+    """A single-graph ``Graph`` with optional padding (as the JAX function,
+    one graph slot when ``n_node_pad`` is not given)."""
+    return batch_graphs(
+        [dict(node_feats=node_feats, senders=senders, receivers=receivers,
+              edge_feats=edge_feats)],
+        n_node_pad=n_node_pad, n_edge_pad=n_edge_pad,
+        n_graph_pad=1 if n_node_pad is None else None)
+
+
+def sort_by_receiver(graph: Graph) -> Graph:
+    """The graph with its edges stably sorted by receiver and ``edge_ptr``
+    rebuilt, on the graph's device.  Padded edges must point at the last
+    node, which owns no real edge, so that they stay at the tail."""
+    order = torch.argsort(graph.receivers, stable=True)
+    receivers = graph.receivers[order]
+    n = graph.n_node_pad
+    edge_ptr = torch.empty(n + 1, dtype=torch.int32,
+                           device=receivers.device)
+    edge_ptr[0] = 0
+    edge_ptr[1:] = torch.searchsorted(
+        receivers, torch.arange(1, n + 1, device=receivers.device),
+        side='left').to(torch.int32)
+    edge_ptr[-1] = graph.n_edge_pad
+
+    def take(x):
+        return None if x is None else x[order]
+
+    return dataclasses.replace(
+        graph, senders=graph.senders[order], receivers=receivers,
+        edge_mask=graph.edge_mask[order], edge_feats=take(graph.edge_feats),
+        snorm_e=take(graph.snorm_e), edge_ptr=edge_ptr)

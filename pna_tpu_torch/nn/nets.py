@@ -1,4 +1,4 @@
-"""The real-world benchmark nets on the fused PNA layer.
+"""The real-world benchmark nets.
 
 Counterpart of ``pna_tpu/nn/nets.py``:
 
@@ -11,17 +11,23 @@ Counterpart of ``pna_tpu/nn/nets.py``:
 * ``PNANetSuperpixels`` (MNIST/CIFAR10 superpixel classification): the same
   stack on ``nn.Linear`` embeddings of the float node (and edge) features,
   MLPReadout(out_dim, n_classes), masked cross-entropy.
+* ``PNANetHIV`` (OGB MolHIV classification): ``AtomEncoder`` -> in-feature
+  dropout -> L x PNASimpleLayerSparse -> readout -> MLPReadout(out_dim, 1),
+  masked BCE-with-logits.
 
-The CSR layout of a batch is built once and shared by every layer;
-``kernel`` (``'csr'`` or ``'csr_fused'``) and ``compute_dtype`` (float32 or
-bfloat16) reach every layer, as in the JAX nets.  Weights are drawn from a
-CPU generator seeded with ``seed``; dropout masks from ``generator``, a
-generator on the net's device (one seeded with ``seed`` when not given),
-shared by every dropout of the net: ``net.generator``.
+``fused_towers=True`` (the default) stacks ``PNALayerFused``; False stacks
+``PNALayerSparse`` (separate towers, float32 only: ``kernel`` and
+``max_degree`` do not reach them, as in the JAX nets).  The CSR layout of a
+batch is built once and shared by every layer; ``kernel`` (``'csr'`` or
+``'csr_fused'``) and ``compute_dtype`` (float32 or bfloat16) reach every
+fused layer.  Weights are drawn from a CPU generator seeded with ``seed``;
+dropout masks from ``generator``, a generator on the net's device (one
+seeded with ``seed`` when not given), shared by every dropout of the net:
+``net.generator``.  ``AtomEncoder`` and ``BondEncoder`` sum one embedding per
+OGB feature column (submodules ``emb_{i}``, xavier-uniform).
 
-Not ported: the unfused tower layers (``fused_towers=False``,
-``PNALayerSparse``: ROADMAP Queue 1 item 10) and ``remat`` (item 6), which
-raise ``NotImplementedError``; ``PNANetHIV`` (item 10).
+Not ported: ``remat`` (ROADMAP Queue 1 item 6), which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,9 +43,48 @@ from pna_tpu_torch.graph import Graph
 from pna_tpu_torch.nn.fused import PNALayerFused, check_backend
 from pna_tpu_torch.nn.layers import (Dropout, GRUUpdate, MLPReadout, dense,
                                      torch_linear_bias_init,
-                                     torch_linear_init)
+                                     torch_linear_init, xavier_uniform_gain)
+from pna_tpu_torch.nn.sparse import PNALayerSparse, PNASimpleLayerSparse
 from pna_tpu_torch.ops import csr_bank
 from pna_tpu_torch.ops.readout import readout
+
+# OGB molecular feature cardinalities (ogb.utils.features
+# get_atom_feature_dims / get_bond_feature_dims)
+OGB_ATOM_FEATURE_DIMS = (119, 4, 12, 12, 10, 6, 6, 2, 2)
+OGB_BOND_FEATURE_DIMS = (5, 6, 2)
+
+
+class AtomEncoder(nn.Module):
+    """OGB AtomEncoder: the sum of one embedding per feature column,
+    ``emb_{i}`` [dims[i], emb_dim], xavier-uniform."""
+
+    def __init__(self, emb_dim: int,
+                 feature_dims: Sequence[int] = OGB_ATOM_FEATURE_DIMS,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.n_cols = len(feature_dims)
+        for i, dim in enumerate(feature_dims):
+            setattr(self, f'emb_{i}', nn.Embedding(
+                dim, emb_dim, _weight=xavier_uniform_gain(1.0)(
+                    (dim, emb_dim), generator)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [..., n_cols] integer features -> [..., emb_dim]."""
+        out = 0
+        for i in range(self.n_cols):
+            out = out + getattr(self, f'emb_{i}')(x[..., i])
+        return out
+
+
+class BondEncoder(AtomEncoder):
+    """OGB BondEncoder: AtomEncoder over the bond feature columns."""
+
+    def __init__(self, emb_dim: int,
+                 feature_dims: Sequence[int] = OGB_BOND_FEATURE_DIMS,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(emb_dim, feature_dims, generator)
 
 
 class _PNAStack(nn.Module):
@@ -53,29 +98,34 @@ class _PNAStack(nn.Module):
                      pretrans_layers, posttrans_layers, gru_enable,
                      fused_towers, kernel, max_degree, compute_dtype,
                      n_out, gen):
-        if not fused_towers:
-            raise NotImplementedError(
-                "fused_towers=False (PNALayerSparse) is not ported yet: "
-                "ROADMAP Queue 1 item 10")
         check_backend(kernel, compute_dtype)
+        if not fused_towers and compute_dtype not in (None, torch.float32):
+            raise ValueError("fused_towers=False runs in float32 only")
         self.edge_feat, self.readout_type = edge_feat, readout_type
         self.max_degree = max_degree
         layers = []
         for i in range(n_layers):
             last = i == n_layers - 1
-            layers.append(PNALayerFused(
-                hidden_dim, out_dim if last else hidden_dim,
-                aggregators, scalers, avg_d, graph_norm=graph_norm,
-                batch_norm=batch_norm, towers=towers,
+            common = dict(
+                graph_norm=graph_norm, batch_norm=batch_norm, towers=towers,
                 divide_input=(divide_input_last if last
                               else divide_input_first),
                 residual=residual, edge_features=edge_feat,
                 edge_dim=edge_dim, dropout=dropout,
                 pretrans_layers=pretrans_layers,
-                posttrans_layers=posttrans_layers, kernel=kernel,
-                max_degree=max_degree, compute_dtype=compute_dtype,
-                device='cpu', generator=gen,
-                dropout_generator=self.generator))
+                posttrans_layers=posttrans_layers, device='cpu',
+                generator=gen, dropout_generator=self.generator)
+            if not fused_towers:
+                layer = PNALayerSparse(
+                    hidden_dim, out_dim if last else hidden_dim,
+                    aggregators, scalers, avg_d, **common)
+            else:
+                layer = PNALayerFused(
+                    hidden_dim, out_dim if last else hidden_dim,
+                    aggregators, scalers, avg_d, kernel=kernel,
+                    max_degree=max_degree, compute_dtype=compute_dtype,
+                    **common)
+            layers.append(layer)
         self.layers = nn.ModuleList(layers)
         self.gru = GRUUpdate(hidden_dim, gen) if gru_enable else None
         self.MLP_layer = MLPReadout(out_dim, n_out, generator=gen)
@@ -214,3 +264,56 @@ class PNANetSuperpixels(_PNAStack):
             m = graph_mask.to(nll.dtype)
             return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
         return torch.mean(nll)
+
+
+class PNANetHIV(nn.Module):
+    """MolHIV classification net: AtomEncoder -> in-feature dropout -> L x
+    PNASimpleLayerSparse (hidden_dim, the last to out_dim) -> readout ->
+    MLPReadout(out_dim, 1); BCE-with-logits loss."""
+
+    def __init__(self, hidden_dim: int, out_dim: int, n_layers: int,
+                 aggregators: Sequence[str], scalers: Sequence[str],
+                 avg_d: Dict[str, float], *, readout_type: str = 'mean',
+                 in_feat_dropout: float = 0.0, dropout: float = 0.0,
+                 batch_norm: bool = True, residual: bool = True,
+                 posttrans_layers: int = 1, device: DeviceLike = None,
+                 seed: int = 0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.generator = _generator(generator, device, seed)
+        gen = torch.Generator().manual_seed(seed)
+        self.readout_type = readout_type
+        self.embedding_h = AtomEncoder(hidden_dim, generator=gen)
+        self.in_feat_dropout = Dropout(in_feat_dropout, self.generator)
+        self.layers = nn.ModuleList(
+            PNASimpleLayerSparse(
+                hidden_dim, out_dim if i == n_layers - 1 else hidden_dim,
+                aggregators, scalers, avg_d, dropout=dropout,
+                batch_norm=batch_norm, residual=residual,
+                posttrans_layers=posttrans_layers, device='cpu',
+                generator=gen, dropout_generator=self.generator)
+            for i in range(n_layers))
+        self.MLP_layer = MLPReadout(out_dim, 1, generator=gen)
+        self.to(device)
+
+    def forward(self, graph: Graph, x: torch.Tensor) -> torch.Tensor:
+        """x [N, 9] OGB atom features -> logits [G_pad, 1]."""
+        h = self.in_feat_dropout(self.embedding_h(x))
+        layout = csr_bank.layout_from_graph(graph)
+        for layer in self.layers:
+            h = layer(graph, h, layout)
+        return self.MLP_layer(readout(self.readout_type, graph, h))
+
+    @staticmethod
+    def loss(scores: torch.Tensor, labels: torch.Tensor,
+             graph_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """BCE with logits, in the log1p(exp(-|x|)) form, masked over real
+        graphs."""
+        x = scores.squeeze(-1)
+        y = labels.to(x.dtype)
+        bce = torch.clamp(x, min=0) - x * y + torch.log1p(torch.exp(-x.abs()))
+        if graph_mask is not None:
+            m = graph_mask.to(bce.dtype)
+            return torch.sum(bce * m) / torch.clamp(torch.sum(m), min=1.0)
+        return torch.mean(bce)

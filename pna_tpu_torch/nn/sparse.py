@@ -1,13 +1,90 @@
-"""Masked batch normalisation over the node axis.
+"""Sparse (edge-list) PNA layers and masked batch normalisation.
 
-Counterpart of ``pna_tpu/nn/sparse.py::MaskedBatchNorm``; the sparse layers
-of that module are ROADMAP Queue 1 item 10.
+Counterpart of ``pna_tpu/nn/sparse.py``: ``aggregate_bank`` (its segment
+path; the ELL path is ROADMAP Queue 1 item 12), ``PNATowerSparse``,
+``PNALayerSparse``, ``PNASimpleLayerSparse`` and ``MaskedBatchNorm`` (the
+GCN, GAT and GIN layers are item 11).
+
+The bank concatenates the aggregators on the feature axis, then one block
+per scaler, as the JAX bank does.  The scalers take the raw in-degree of the
+receiver (``CSRLayout.deg``: 0 on pad and isolated nodes).  Where the bank
+runs: on the card, the aggregators the CSR kernels compute (``csr_bank.AGGS``:
+mean, sum, max, min, var, std) go through ``csr_raw_bank`` (K1 forward, K2
+backward) in one call; the others (identity, normalised_mean, softmax,
+softmin, moments), and every aggregator on the CPU, take the segment form of
+``ops/aggregators.py``, which is also the plain version the card is held
+against.  The choice follows the aggregator set and the device only.
+
+Pretrans concatenates (src, dst[, edge]), the DGL tower's order; ``identity``
+aggregates the message a node sends itself (pretrans of (h, h[, 0])).
 """
 
 from __future__ import annotations
 
+from typing import Dict, Optional, Sequence
+
 import torch
 from torch import nn
+from torch.nn import functional as F
+
+from pna_tpu_torch.device import DeviceLike, resolve_device
+from pna_tpu_torch.graph import Graph
+from pna_tpu_torch.nn.layers import MLP, Dropout, FCLayer
+from pna_tpu_torch.ops import csr_bank
+from pna_tpu_torch.ops import segment as seg
+from pna_tpu_torch.ops.aggregators import SEGMENT_AGGREGATORS, SegmentCtx
+from pna_tpu_torch.ops.scalers import SCALERS
+
+
+def node_bank(graph: Graph, msg: torch.Tensor, aggregators: Sequence[str],
+              layout: csr_bank.CSRLayout,
+              self_msg: Optional[torch.Tensor] = None,
+              relu_clamp: bool = True) -> torch.Tensor:
+    """The aggregators over receiver-sorted messages: msg [E, ..., F] ->
+    [N, ..., A*F], aggregators concatenated on the feature axis in caller
+    order.  ``relu_clamp=False`` leaves 'var' unclamped (PyG's var)."""
+    parts = {}
+    kern = ([a for a in aggregators if a in csr_bank.AGGS]
+            if msg.is_cuda else [])
+    if kern:
+        z = csr_bank.csr_raw_bank(msg.reshape(msg.shape[0], -1), layout,
+                                  kern, relu_clamp)      # [N, K, prod(...)]
+        z = z.reshape((z.shape[0], len(kern)) + msg.shape[1:])
+        parts = dict(zip(kern, z.unbind(1)))
+    rest = [a for a in aggregators if a not in parts]
+    if rest:
+        ctx = SegmentCtx.create(msg, graph.receivers, graph.n_node_pad,
+                                mask=graph.edge_mask, senders=graph.senders,
+                                self_msg=self_msg)
+        for a in rest:
+            parts[a] = (seg.segment_var(msg, ctx.receivers, ctx.num_nodes,
+                                        ctx.mask, ctx.count, relu_clamp=False)
+                        if a == 'var' and not relu_clamp
+                        else SEGMENT_AGGREGATORS[a](ctx))
+    return torch.cat([parts[a] for a in aggregators], dim=-1)
+
+
+def aggregate_bank(graph: Graph, msg: torch.Tensor,
+                   aggregators: Sequence[str], scalers: Sequence[str],
+                   avg_d: Dict[str, float],
+                   self_msg: Optional[torch.Tensor] = None,
+                   layout: Optional[csr_bank.CSRLayout] = None
+                   ) -> torch.Tensor:
+    """Aggregator x scaler cross-product over edge messages: msg [E, F] ->
+    [N, S*A*F].  ``layout`` is the batch's CSR layout (built here when not
+    given); its ``deg`` is the scalers' degree."""
+    if layout is None:
+        layout = csr_bank.layout_from_graph(graph)
+    h = node_bank(graph, msg, aggregators, layout, self_msg)
+    return torch.cat([SCALERS[s](h, layout.deg, avg_d) for s in scalers],
+                     dim=-1)
+
+
+def check_bank(aggregators: Sequence[str], scalers: Sequence[str]) -> None:
+    bad = [a for a in aggregators if a not in SEGMENT_AGGREGATORS]
+    bad += [s for s in scalers if s not in SCALERS]
+    if bad:
+        raise ValueError(f"unknown aggregators or scalers: {bad}")
 
 
 class MaskedBatchNorm(nn.Module):
@@ -49,3 +126,157 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
             + self.bias
+
+
+def _generator(generator):
+    return torch.Generator().manual_seed(0) if generator is None else generator
+
+
+class PNATowerSparse(nn.Module):
+    """One PNA tower on the edge list: pretrans MLP on (src, dst[, e]) ->
+    bank -> posttrans MLP on (h, bank) -> graph-norm -> masked batch-norm ->
+    dropout."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 aggregators: Sequence[str], scalers: Sequence[str],
+                 avg_d: Dict[str, float], *, dropout: float = 0.0,
+                 graph_norm: bool = False, batch_norm: bool = False,
+                 pretrans_layers: int = 1, posttrans_layers: int = 1,
+                 edge_features: bool = False, edge_dim: int = 0,
+                 device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None,
+                 dropout_generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_bank(aggregators, scalers)
+        device = resolve_device(device)
+        gen = _generator(generator)
+        self.aggregators, self.scalers = tuple(aggregators), tuple(scalers)
+        self.avg_d = dict(avg_d)
+        self.graph_norm, self.edge_features = graph_norm, edge_features
+        self.edge_dim = edge_dim if edge_features else 0
+        A, S = len(self.aggregators), len(self.scalers)
+        self.pretrans = MLP(2 * in_dim + self.edge_dim, in_dim, in_dim,
+                            pretrans_layers, generator=gen)
+        self.posttrans = MLP((A * S + 1) * in_dim, out_dim, out_dim,
+                             posttrans_layers, generator=gen)
+        self.batchnorm_h = MaskedBatchNorm(out_dim) if batch_norm else None
+        self.dropout = Dropout(dropout, dropout_generator)
+        self.to(device)
+
+    def forward(self, graph: Graph, h: torch.Tensor,
+                e: Optional[torch.Tensor] = None,
+                layout: Optional[csr_bank.CSRLayout] = None) -> torch.Tensor:
+        """h [N, in_dim], e [E, edge_dim] -> [N, out_dim]."""
+        extra = [e] if self.edge_features else []
+        msg = self.pretrans(torch.cat([h[graph.senders], h[graph.receivers]]
+                                      + extra, dim=-1))
+        self_msg = None
+        if 'identity' in self.aggregators:
+            pad = ([h.new_zeros(h.shape[0], self.edge_dim)]
+                   if self.edge_features else [])
+            self_msg = self.pretrans(torch.cat([h, h] + pad, dim=-1))
+        agg = aggregate_bank(graph, msg, self.aggregators, self.scalers,
+                             self.avg_d, self_msg=self_msg, layout=layout)
+        out = self.posttrans(torch.cat([h, agg], dim=-1))
+        if self.graph_norm:
+            out = out * graph.snorm_n
+        if self.batchnorm_h is not None:
+            out = self.batchnorm_h(out, graph.node_mask)
+        return self.dropout(out)
+
+
+class PNALayerSparse(nn.Module):
+    """PNA layer: ``towers`` separate towers (``tower_{t}``), each on its
+    slice of h (``divide_input``) or on all of it, concatenated -> the
+    ``mixing`` FCLayer (LeakyReLU) -> the residual when in_dim == out_dim."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 aggregators: Sequence[str], scalers: Sequence[str],
+                 avg_d: Dict[str, float], *, dropout: float = 0.0,
+                 graph_norm: bool = False, batch_norm: bool = False,
+                 towers: int = 1, pretrans_layers: int = 1,
+                 posttrans_layers: int = 1, divide_input: bool = True,
+                 residual: bool = False, edge_features: bool = False,
+                 edge_dim: int = 0, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None,
+                 dropout_generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if divide_input and in_dim % towers:
+            raise ValueError(f"in_dim {in_dim} not divisible by {towers}")
+        if out_dim % towers:
+            raise ValueError(f"out_dim {out_dim} not divisible by {towers}")
+        device = resolve_device(device)
+        gen = _generator(generator)
+        self.towers, self.divide_input = towers, divide_input
+        self.input_tower = in_dim // towers if divide_input else in_dim
+        self.residual = residual and in_dim == out_dim
+        for t in range(towers):
+            setattr(self, f'tower_{t}', PNATowerSparse(
+                self.input_tower, out_dim // towers, aggregators, scalers,
+                avg_d, dropout=dropout, graph_norm=graph_norm,
+                batch_norm=batch_norm, pretrans_layers=pretrans_layers,
+                posttrans_layers=posttrans_layers,
+                edge_features=edge_features, edge_dim=edge_dim,
+                device='cpu', generator=gen,
+                dropout_generator=dropout_generator))
+        self.mixing = FCLayer(out_dim, out_dim, activation='leakyrelu',
+                              generator=gen)
+        self.to(device)
+
+    def forward(self, graph: Graph, h: torch.Tensor,
+                e: Optional[torch.Tensor] = None,
+                layout: Optional[csr_bank.CSRLayout] = None) -> torch.Tensor:
+        """h [N, in_dim], e [E, edge_dim] -> [N, out_dim]; ``layout`` is the
+        batch's CSR layout, shared by every tower (built here when not
+        given)."""
+        if layout is None:
+            layout = csr_bank.layout_from_graph(graph)
+        w = self.input_tower
+        outs = [getattr(self, f'tower_{t}')(
+            graph, h[:, t * w:(t + 1) * w] if self.divide_input else h, e,
+            layout) for t in range(self.towers)]
+        out = self.mixing(torch.cat(outs, dim=-1))
+        return h + out if self.residual else out
+
+
+class PNASimpleLayerSparse(nn.Module):
+    """Simplified PNA layer: the bank over the raw messages h[senders], no
+    pretrans, towers or edge features; posttrans MLP on the (A*S)*in_dim
+    bank -> masked batch-norm -> ReLU -> residual -> dropout."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 aggregators: Sequence[str], scalers: Sequence[str],
+                 avg_d: Dict[str, float], *, dropout: float = 0.0,
+                 batch_norm: bool = False, residual: bool = False,
+                 posttrans_layers: int = 1, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None,
+                 dropout_generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_bank(aggregators, scalers)
+        if 'identity' in aggregators:
+            raise ValueError("the simple layer has no self message for "
+                             "'identity'")
+        device = resolve_device(device)
+        gen = _generator(generator)
+        self.aggregators, self.scalers = tuple(aggregators), tuple(scalers)
+        self.avg_d = dict(avg_d)
+        self.residual = residual
+        A, S = len(self.aggregators), len(self.scalers)
+        self.posttrans = MLP(A * S * in_dim, out_dim, out_dim,
+                             posttrans_layers, generator=gen)
+        self.batchnorm_h = MaskedBatchNorm(out_dim) if batch_norm else None
+        self.dropout = Dropout(dropout, dropout_generator)
+        self.to(device)
+
+    def forward(self, graph: Graph, h: torch.Tensor,
+                layout: Optional[csr_bank.CSRLayout] = None) -> torch.Tensor:
+        """h [N, in_dim] -> [N, out_dim]."""
+        agg = aggregate_bank(graph, h[graph.senders], self.aggregators,
+                             self.scalers, self.avg_d, layout=layout)
+        out = self.posttrans(agg)
+        if self.batchnorm_h is not None:
+            out = self.batchnorm_h(out, graph.node_mask)
+        out = F.relu(out)
+        if self.residual:
+            out = h + out
+        return self.dropout(out)

@@ -105,22 +105,25 @@ def layout_from_graph(graph, max_degree: int = 0) -> CSRLayout:
                       graph.max_in_degree or None, graph.senders)
 
 
-def _assemble(aggregators, s, sq, mx, mn, cnt):
+def _assemble(aggregators, s, sq, mx, mn, cnt, relu_clamp=True):
     c = cnt[:, None]
     mean = s / c
     var_raw = sq / c - mean * mean
     var = torch.relu(var_raw)
     std = torch.sqrt(var + EPS)
-    table = {'mean': mean, 'sum': s, 'max': mx, 'min': mn, 'var': var,
-             'std': std}
+    table = {'mean': mean, 'sum': s, 'max': mx, 'min': mn,
+             'var': var if relu_clamp else var_raw, 'std': std}
     agg = torch.stack([table[a] for a in aggregators], dim=1)   # [N, A, F]
     return agg, (mean, var_raw, std)
 
 
-def node_fields(aggregators, d_agg, cnt, mean, var_raw, std, tmx, tmn):
+def node_fields(aggregators, d_agg, cnt, mean, var_raw, std, tmx, tmn,
+                relu_clamp=True):
     """Fold d_agg [N, A, F] into the node fields (g_lin, g_quad, g_max,
     g_min) that K2 and K4 expand to the edges; g_max/g_min are divided by the
-    tie counts.  The JAX package's ``_pallas_raw_bwd`` and ``_node_fields``."""
+    tie counts.  The JAX package's ``_pallas_raw_bwd`` and ``_node_fields``.
+    std's gradient, and var's with ``relu_clamp``, is 0 where the clamp
+    cuts (var_raw <= 0)."""
     g_lin = torch.zeros_like(mean)
     g_quad = torch.zeros_like(mean)
     g_max = torch.zeros_like(mean)
@@ -139,7 +142,8 @@ def node_fields(aggregators, d_agg, cnt, mean, var_raw, std, tmx, tmn):
         elif a in ('var', 'std'):
             if a == 'std':
                 d = d * (0.5 / std)
-            d = d * (var_raw > 0).to(d.dtype)
+            if a == 'std' or relu_clamp:
+                d = d * (var_raw > 0).to(d.dtype)
             g_quad = g_quad + d * inv_cnt
             g_lin = g_lin - d * 2.0 * mean * inv_cnt
         else:
@@ -153,11 +157,12 @@ class CSRBank(torch.autograd.Function):
     order."""
 
     @staticmethod
-    def forward(ctx, msg, ptr, cnt, segments, aggregators):
+    def forward(ctx, msg, ptr, cnt, segments, aggregators, relu_clamp):
         s, sq, mx, mn, tmx, tmn = csr_moment_sketch(msg, ptr, with_ties=True,
                                                     segments=segments)
-        out, (mean, var_raw, std) = _assemble(aggregators, s, sq, mx, mn, cnt)
-        ctx.aggregators = aggregators
+        out, (mean, var_raw, std) = _assemble(aggregators, s, sq, mx, mn, cnt,
+                                              relu_clamp)
+        ctx.aggregators, ctx.relu_clamp = aggregators, relu_clamp
         ctx.segments = segments
         ctx.save_for_backward(msg, ptr, cnt, mean, var_raw, std, mx, mn, tmx,
                               tmn)
@@ -168,23 +173,26 @@ class CSRBank(torch.autograd.Function):
     def backward(ctx, d_agg):
         msg, ptr, cnt, mean, var_raw, std, mx, mn, tmx, tmn = ctx.saved_tensors
         fields = node_fields(ctx.aggregators, d_agg, cnt, mean, var_raw, std,
-                             tmx, tmn)
+                             tmx, tmn, ctx.relu_clamp)
         # the pad rows past ptr[N] come back as 0 (K2 writes them)
         d_msg = csr_dmsg(msg, ptr, *fields, mx, mn, segments=ctx.segments)
-        return d_msg, None, None, None, None
+        return d_msg, None, None, None, None, None
 
 
 def csr_raw_bank(msg: torch.Tensor, layout: CSRLayout,
-                 aggregators: Sequence[str]) -> torch.Tensor:
+                 aggregators: Sequence[str],
+                 relu_clamp: bool = True) -> torch.Tensor:
     """Aggregator bank over a receiver-sorted message tensor: msg [E, F] ->
     Z [N, A, F] float32.  Without a gradient to track, K1 runs without tie
-    counts."""
+    counts.  ``relu_clamp=False`` gives 'var' unclamped, forward and
+    backward (PyG's var); std always clamps."""
     if not supports(aggregators):
         raise ValueError(f"unsupported aggregators {aggregators}")
     msg = msg.to(torch.float32).contiguous()
     if torch.is_grad_enabled() and msg.requires_grad:
         return CSRBank.apply(msg, layout.ptr, layout.cnt, layout.segments,
-                             tuple(aggregators))
+                             tuple(aggregators), relu_clamp)
     s, sq, mx, mn = csr_moment_sketch(msg, layout.ptr, with_ties=False,
                                       segments=layout.segments)
-    return _assemble(tuple(aggregators), s, sq, mx, mn, layout.cnt)[0]
+    return _assemble(tuple(aggregators), s, sq, mx, mn, layout.cnt,
+                     relu_clamp)[0]

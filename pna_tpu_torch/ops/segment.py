@@ -1,10 +1,12 @@
 """Segment reductions over rows of a tensor keyed by segment ids.
 
 Counterpart of ``pna_tpu/ops/segment.py`` (sum, count, mean, max, min, var,
-std), written with ``index_add_`` and ``scatter_reduce``.  Empty segments
-give 0; ``mask`` drops rows; EPS sits inside the sqrt of std and var is
-relu-clamped.  These functions are the plain versions the CSR kernels are
-held against (``pna_tpu_torch/ops/csr_kernels.py``).
+std, softmax weights, moments), written with ``index_add_`` and
+``scatter_reduce``.  Empty segments give 0; ``mask`` drops rows; EPS sits
+inside the sqrt of std, which relu-clamps the variance (``segment_var``
+clamps unless told not to, as PyG's var does not).  These functions are the
+plain versions the CSR kernels are held against
+(``pna_tpu_torch/ops/csr_kernels.py``).
 """
 
 from __future__ import annotations
@@ -65,17 +67,46 @@ def segment_min(data, segment_ids, num_segments, mask=None):
                             float('inf'))
 
 
-def segment_var(data, segment_ids, num_segments, mask=None, count=None):
-    """relu(E[X^2] - E[X]^2) per segment."""
+def segment_var(data, segment_ids, num_segments, mask=None, count=None,
+                relu_clamp: bool = True):
+    """relu(E[X^2] - E[X]^2) per segment; without ``relu_clamp`` the raw
+    difference, which float rounding can make slightly negative."""
     if count is None:
         count = segment_count(segment_ids, num_segments, mask,
                               dtype=data.dtype)
     mean = segment_mean(data, segment_ids, num_segments, mask, count)
     mean_sq = segment_mean(data * data, segment_ids, num_segments, mask, count)
-    return torch.relu(mean_sq - mean * mean)
+    var = mean_sq - mean * mean
+    return torch.relu(var) if relu_clamp else var
 
 
 def segment_std(data, segment_ids, num_segments, mask=None, count=None):
     """sqrt(relu(var) + EPS)."""
     return torch.sqrt(segment_var(data, segment_ids, num_segments, mask,
                                   count) + EPS)
+
+
+def segment_softmax_weights(logits, segment_ids, num_segments, mask=None):
+    """Per-segment softmax weights over the rows ([E, ...] -> [E, ...]),
+    each segment's max subtracted first (the JAX ``stable=True`` form; 0 for
+    an empty segment, so its masked rows stay finite); masked rows weigh
+    0."""
+    logits = logits - segment_max(logits, segment_ids, num_segments,
+                                  mask)[segment_ids]
+    ex = _apply_mask(torch.exp(logits), mask, 0.0)
+    denom = segment_sum(ex, segment_ids, num_segments)
+    denom = torch.clamp(denom, min=torch.finfo(ex.dtype).tiny)
+    return ex / denom[segment_ids]
+
+
+def segment_moment(data, segment_ids, num_segments, n: int, mask=None,
+                   count=None):
+    """sign(m_n) * (|m_n| + EPS)^(1/n) with m_n = E[(X - E[X])^n] per
+    segment."""
+    if count is None:
+        count = segment_count(segment_ids, num_segments, mask,
+                              dtype=data.dtype)
+    mean = segment_mean(data, segment_ids, num_segments, mask, count)
+    centered = data - mean[segment_ids]
+    m_n = segment_mean(centered ** n, segment_ids, num_segments, mask, count)
+    return torch.sign(m_n) * torch.pow(torch.abs(m_n) + EPS, 1.0 / n)

@@ -1,10 +1,13 @@
 """Carry weights from the JAX package into the port.
 
 ``from_jax(params, batch_stats)`` takes the flax ``params`` and
-``batch_stats`` trees of ``PNANetMolecules``, ``PNANetSuperpixels``, one
-``PNALayerFused`` or one of the building blocks of ``nn/layers.py``, already
-turned into nested dicts of numpy arrays, and returns the port's
-``state_dict``.  Names map as follows (flax -> port):
+``batch_stats`` trees of ``PNANetMolecules`` (with fused or unfused
+towers), ``PNANetSuperpixels``, ``PNANetHIV``, ``PNANetPyGExample``, one
+layer (``PNALayerFused``, ``PNALayerSparse``, ``PNATowerSparse``,
+``PNASimpleLayerSparse``, ``PNAConvPyG``, ``PNAConvSimplePyG``) or one of
+the building blocks of ``nn/layers.py``, already turned into nested dicts of
+numpy arrays, and returns the port's ``state_dict``.  Names map as follows
+(flax -> port):
 
 * ``embedding_h/embedding`` -> ``embedding_h.weight`` (same for ``_e``); a
   ``Dense`` embedding's ``embedding_h/kernel`` -> ``embedding_h.weight``,
@@ -18,6 +21,18 @@ turned into nested dicts of numpy arrays, and returns the port's
   transposed;
 * ``FCLayer_k/Dense_0`` -> ``fully_connected.k.linear`` and
   ``FCLayer_k/BatchNorm_0`` -> ``fully_connected.k.b_norm`` (an ``MLP``);
+  the sparse layer's ``mixing/Dense_0`` (an ``FCLayer``) ->
+  ``mixing.linear``;
+* the sparse layers: ``layer_i/tower_t/pretrans/FCLayer_k/...`` ->
+  ``layers.i.tower_t.pretrans.fully_connected.k...`` (and ``posttrans``,
+  ``batchnorm_h``); ``PNANetHIV``'s ``layer_i/posttrans/...`` ->
+  ``layers.i.posttrans...``;
+* ``embedding_h/emb_i/embedding`` (``AtomEncoder``) ->
+  ``embedding_h.emb_i.weight``;
+* the PyG modules keep their names: ``conv_i/post_nn_lin_0/kernel`` ->
+  ``conv_i.post_nn_lin_0.weight``, transposed; ``bn_i/scale`` ->
+  ``bn_i.weight``; ``node_emb/emb_i``, ``mlp_lin_k``, ``pre_nns_t_lin_i``,
+  ``post_nns_t_lin_i``, ``edge_encoder``, ``lin`` likewise;
 * ``gru/GRUCell_0`` -> ``gru.cell``: flax's input denses ``ir``, ``iz``,
   ``in`` (with bias) and hidden denses ``hr``, ``hz`` (no bias) and ``hn``
   (with bias) become ``torch.nn.GRUCell``'s ``weight_ih``/``bias_ih`` and
@@ -46,7 +61,8 @@ _IN_FC = {'Dense_0': 'linear', 'BatchNorm_0': 'b_norm'}
 def _module_name(path) -> str:
     parts = []
     for i, p in enumerate(path):
-        if i and re.match(r'^FCLayer_\d+$', path[i - 1]) and p in _IN_FC:
+        if i and re.match(r'^(FCLayer_\d+|mixing)$', path[i - 1]) \
+                and p in _IN_FC:
             parts.append(_IN_FC[p])
             continue
         p = re.sub(r'^layer_(\d+)$', r'layers.\1', p)

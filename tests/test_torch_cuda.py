@@ -17,7 +17,10 @@ bit); d_msg rtol 1e-5, atol 1e-6, on every row (K4 writes the rows outside
 every range as 0, and so does K2).
 
 ``segment_case`` is the layout of whole and split nodes that
-tests/test_torch_csr_segments.py shares."""
+tests/test_torch_csr_segments.py shares.  The last tests hold the sparse
+bank's routing on the card (K1/K2 for mean/sum/max/min/var/std, plain torch
+for the other aggregators) against the CPU's segment form, and the bank on
+a node no edge reaches."""
 
 import numpy as np
 import pytest
@@ -554,3 +557,137 @@ def test_cuda_pretrans_refuses_what_shared_memory_cannot_hold():
     want = fk.csr_pretrans_sketch_plain(u, v, snd, p, ef, ke, True)
     for g, w in zip(got[2:], want[2:]):
         assert torch.equal(g, w)
+
+
+# ---- the sparse bank's routing on the card ----------------------------
+
+def _sparse_batch(seed=21, n_graphs=6, f=10, fe=4):
+    """Random small graphs; graph 0's last node is isolated (in-degree 0, a
+    salt's counter-ion in OGB molecules) and node 1 of each graph receives
+    three edges carrying one message (equal sender features: max and min
+    tie, and the variance E[x^2] - E[x]^2 rounds to a tiny value of either
+    sign)."""
+    from pna_tpu_torch.graph import batch_graphs
+    rng = np.random.RandomState(seed)
+    recs = []
+    for g in range(n_graphs):
+        n = rng.randint(6, 11)
+        snd, rcv = [], []
+        for v in range(2, n - (g == 0)):
+            u = rng.randint(0, v)
+            snd += [u, v]
+            rcv += [v, u]
+        snd += [0, 0, 0]
+        rcv += [1, 1, 1]
+        recs.append(dict(node_feats=rng.randn(n, f).astype(np.float32),
+                         senders=np.asarray(snd, np.int32),
+                         receivers=np.asarray(rcv, np.int32),
+                         edge_feats=rng.randn(len(snd), fe).astype(
+                             np.float32)))
+    graph = batch_graphs(recs, with_snorm=True)
+    iso = recs[0]['node_feats'].shape[0] - 1
+    assert float(graph.in_degrees()[iso]) == 0 and bool(graph.node_mask[iso])
+    return graph, iso
+
+
+def _run_layer(make, graph, x, device):
+    torch.manual_seed(0)
+    m = make(device)
+    m.load_state_dict(make('cpu').state_dict())
+    m.train()
+    g = graph.to(device)
+    h = x.to(device).detach().requires_grad_(True)
+    out = m(g, h, g.edge_feats)
+    (torch.sin(out) * g.node_mask[:, None]).sum().backward()
+    return (out.detach().cpu(), h.grad.cpu(),
+            {k: p.grad.cpu() for k, p in m.named_parameters()})
+
+
+def _hold_layer(make, graph, x, k1_calls):
+    """The layer on the card (K1/K2 for the kernels' aggregators, plain
+    torch for the rest) against the same weights on the CPU (segment form):
+    output rtol 1e-4, atol 1e-5; every gradient within 1e-4 of the largest
+    gradient entry (sums in other orders); one K1 and one K2 launch per
+    bank."""
+    before = fk.launch_counts()
+    card = _run_layer(make, graph, x, 'cuda')
+    torch.cuda.synchronize()
+    after = fk.launch_counts()
+    cpu = _run_layer(make, graph, x, 'cpu')
+    assert after['csr_moment_sketch'] - before['csr_moment_sketch'] == k1_calls
+    assert after['csr_dmsg'] - before['csr_dmsg'] == k1_calls
+    torch.testing.assert_close(card[0], cpu[0], rtol=1e-4, atol=1e-5)
+    grads_card = dict(card[2], x=card[1])
+    grads_cpu = dict(cpu[2], x=cpu[1])
+    scale = max(float(g.abs().max()) for g in grads_cpu.values())
+    for k, g in grads_cpu.items():
+        assert torch.isfinite(grads_card[k]).all(), k
+        assert float((grads_card[k] - g).abs().max()) <= 1e-4 * scale, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("towers", [1, 5])
+def test_cuda_sparse_layer_routes_kernels_and_plain(towers):
+    """PNALayerSparse with edge features and identity and softmax beside
+    mean/max/min/std: one K1/K2 call per tower on the card."""
+    from pna_tpu_torch.nn.sparse import PNALayerSparse
+    _need_card()
+    graph, _ = _sparse_batch()
+    aggs = ('mean', 'identity', 'max', 'softmax', 'min', 'std')
+
+    def make(device):
+        return PNALayerSparse(
+            10, 10, aggs, ('identity', 'amplification', 'attenuation'),
+            {'log': 1.3, 'lin': 2.1}, towers=towers, edge_features=True,
+            edge_dim=4, graph_norm=True, batch_norm=True, residual=True,
+            device=device, generator=torch.Generator().manual_seed(1))
+    _hold_layer(make, graph, graph.node_feats, towers)
+
+
+@pytest.mark.cuda
+def test_cuda_pyg_conv_unclamped_var_and_towers():
+    """PNAConvPyG (2 towers, divided input) with PyG's unclamped var: the
+    towered messages go to K1 as one [E, T*F] call; node 1's equal messages
+    give var_raw of either sign, unclamped on both devices."""
+    from pna_tpu_torch.nn.pyg import PNAConvPyG
+    _need_card()
+    graph, _ = _sparse_batch(seed=22)
+
+    def make(device):
+        return PNAConvPyG(10, 8, ('mean', 'var', 'max', 'std', 'min'),
+                          ('identity', 'amplification', 'linear'),
+                          {'log': 1.3, 'lin': 2.1}, edge_dim=4, towers=2,
+                          divide_input=True, pre_layers=2, post_layers=2,
+                          device=device,
+                          generator=torch.Generator().manual_seed(2))
+    _hold_layer(make, graph, graph.node_feats, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_bank_isolated_node():
+    """The CSR bank on a batch with an isolated real node: K1's max and min
+    are 0 there, as the segment reductions give, and the message gradient
+    (K2, fields divided by the tie counts) is finite and equal to the
+    CPU's."""
+    from pna_tpu_torch.ops import segment as seg
+    _need_card()
+    graph, iso = _sparse_batch(seed=23)
+    msg = torch.randn(graph.n_edge_pad, 7,
+                      generator=torch.Generator().manual_seed(3))
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        g = graph.to(dev)
+        layout = csr_bank.layout_from_graph(g)
+        m = msg.to(dev).detach().requires_grad_(True)
+        z = csr_bank.csr_raw_bank(m, layout, ('mean', 'max', 'min', 'std'))
+        torch.sin(z).sum().backward()
+        out[dev] = (z.detach().cpu(), m.grad.cpu())
+    z, d = out['cuda']
+    assert torch.equal(z[iso, 1], torch.zeros(7))
+    assert torch.equal(z[iso, 2], torch.zeros(7))
+    want_max = seg.segment_max(msg, graph.receivers, graph.n_node_pad,
+                               graph.edge_mask)
+    torch.testing.assert_close(z[:, 1], want_max)
+    assert torch.isfinite(d).all()
+    torch.testing.assert_close(z, out['cpu'][0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(d, out['cpu'][1], rtol=1e-4, atol=1e-5)

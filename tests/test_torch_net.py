@@ -136,12 +136,24 @@ def test_gru_and_two_layer_mlps_net_matches_jax():
                posttrans_layers=2)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(fused_towers=False), "item 10"),
+@pytest.mark.parametrize("kw,item", [(dict(kernel='ell'), "item 12"),
                                      (dict(remat=True), "item 6")])
 def test_unported_net_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         PNANetMolecules(**_configs(True), avg_d={'log': 1.0}, device='cpu',
                         **kw)
+
+
+def test_unfused_towers_stack_sparse_layers():
+    """fused_towers=False stacks PNALayerSparse (float32 only); its parity
+    with the JAX net is tests/test_torch_sparse.py's."""
+    from pna_tpu_torch.nn.sparse import PNALayerSparse
+    net = PNANetMolecules(**_configs(True), avg_d={'log': 1.0, 'lin': 2.0},
+                          device='cpu', fused_towers=False)
+    assert all(isinstance(layer, PNALayerSparse) for layer in net.layers)
+    with pytest.raises(ValueError, match="float32"):
+        PNANetMolecules(**_configs(True), avg_d={'log': 1.0}, device='cpu',
+                        fused_towers=False, compute_dtype=torch.bfloat16)
 
 
 def test_net_dropout_follows_generator_and_mode():
