@@ -78,7 +78,29 @@ Phases (any failure raises, so the script exits non-zero):
     the float32 loss held and its gradients reported, see MT_F32_TOL); the
     PNA net in eval mode on the N = 95 bucket (47 layers, 95 LSTM steps), 4
     graphs of it against the CPU's float64; a profile of the PNA recipe's
-    train steps; K1 to K4 launch 0 times in the phase.
+    train steps; K1 to K4 launch 0 times in the phase;
+12. layouts (after the interleaved timing of phase 4): the flagship step on
+    the backends that run on other layouts, each at full width on the
+    phase 4 weights: ``kernel='auto'`` on a degree-bucketed batch (which
+    resolves to the bucketed backend) in float32 and bfloat16,
+    ``kernel='ell'`` on a batch with the ELL table, and
+    ``kernel='generic'`` with ``identity`` added to the aggregators on the
+    CSR batch.  Each takes one step on the card against the CPU (the
+    tolerances of phase 4), its first loss against the ``csr`` step's of
+    the same dtype within LOSS_RTOL (generic: against the same net on the
+    ELL batch), then LAYOUT_STEPS steps with falling loss, its launches (0
+    of K1 to K4 on the bucketed and ELL steps; the generic step's printed),
+    peak memory and a profile, and all are timed interleaved with the
+    ``csr`` float32 step.  Then the ZINC trainer with
+    ``bucket_by_degree=True`` and ``kernel='auto'`` at its JSON config's
+    width for 2 epochs (caps from ``derive_bucket_caps``, one batch shape,
+    the first step card vs CPU, falling loss, seconds per epoch, steps/s,
+    0 launches of K1 to K4); the HIV config's step on an ELL batch card vs
+    CPU and vs its CSR batch (0 launches); and the ``csr`` flagship step
+    with dropout 0.1 and ``remat=True`` against the same step without
+    remat (loss rtol 1e-5, gradients GRAD_TOL, batch-norm statistics rtol
+    1e-6, K1 twice per layer and K2 once, the peak memory of both, and both
+    steps timed interleaved).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -111,9 +133,9 @@ from pna_tpu_torch.cli import pna as mt_pna
 from pna_tpu_torch.data.multitask import load_multitask_dataset
 from pna_tpu_torch.data.hiv import HIVDataset
 from pna_tpu_torch.data.molecules import (ZincDataset, batch_iterator,
-                                          collate_records)
+                                          collate_records, derive_bucket_caps)
 from pna_tpu_torch.data.superpixels import SuperpixelsDataset
-from pna_tpu_torch.nn.nets import PNANetMolecules
+from pna_tpu_torch.nn.nets import PNANetHIV, PNANetMolecules
 from pna_tpu_torch.nn.pyg import PNAConvPyG, PNANetPyGExample
 from pna_tpu_torch.nn.sparse import PNALayerSparse
 from pna_tpu_torch.ops import build, csr_bank, csr_kernels
@@ -781,7 +803,8 @@ def run_steps(model, g_dev, y_dev, kernel, card, graph):
         f"{max(times[TIMED_FROM:]) * 1e3:.3f}); {n_nodes} nodes, {n_edges} "
         f"edges; {stats['edges_per_s']:.1f} edges/s on {card}; peak device "
         f"memory {peak:.1f} MiB")
-    profile_steps(lambda: train_step(model, opt, g_dev, y_dev), step_s * 1e3)
+    stats['profile'] = profile_steps(
+        lambda: train_step(model, opt, g_dev, y_dev), step_s * 1e3)
     return stats, opt
 
 
@@ -1094,7 +1117,7 @@ def hold_step(what, model, cpu_model, losses):
                 and bool(torch.isfinite(b.grad).all())):
             raise AssertionError(f"{what}: gradient {k} is not finite")
         scale = max(float(b.grad.abs().max()), floor)
-        r = float((a.grad.cpu() - b.grad).abs().max()) / scale
+        r = float((a.grad.cpu() - b.grad.cpu()).abs().max()) / scale
         worst = max(worst, r)
         if r > GRAD_TOL:
             raise AssertionError(f"{what}: gradient {k} {r:.3g}")
@@ -1529,6 +1552,319 @@ def multitask_phase(dev, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# layouts phase: the bucketed, ELL and generic backends, and remat
+# ---------------------------------------------------------------------------
+
+LAYOUT_STEPS = 6             # steps of each layout before its profile
+ZERO_COUNTS = {k: 0 for k in SOURCES}
+
+
+def with_kernel(model, kernel):
+    """The net with every fused layer on ``kernel``."""
+    for layer in model.layers:
+        layer.kernel = kernel
+    return model
+
+
+def layout_steps(name, model, g_dev, y_dev, want_counts):
+    """LAYOUT_STEPS Adam steps from the compared weights: the loss finite
+    and falling, the launches of K1 to K4 as ``want_counts`` per step
+    (None: print them), the peak memory; then a profile.  Returns the
+    readings and the trainer tuple of interleaved_steps."""
+    opt = make_optimizer(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launch_counts()
+    losses = [float(train_step(model, opt, g_dev, y_dev))
+              for _ in range(LAYOUT_STEPS)]
+    torch.cuda.synchronize()
+    counts = fk.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"layouts[{name}]: losses {losses}")
+    if want_counts is not None:
+        want = {k: v * LAYOUT_STEPS for k, v in want_counts.items()}
+        if counts != want:
+            raise AssertionError(f"layouts[{name}]: launches {counts}, "
+                                 f"expected {want}")
+    log(f"  {LAYOUT_STEPS} steps, losses {[round(x, 5) for x in losses]}; "
+        f"launches {counts}; peak device memory {peak:.1f} MiB")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        train_step(model, opt, g_dev, y_dev)
+    torch.cuda.synchronize()
+    prof = profile_steps(lambda: train_step(model, opt, g_dev, y_dev),
+                         (time.perf_counter() - t0) / 3 * 1e3)
+    return (dict(peak_mib=peak, counts=counts, losses=losses, profile=prof),
+            (model, opt, g_dev, y_dev))
+
+
+def flagship_layouts(ds, csr_graph, labels, state, csr, csr_trainer, dev,
+                     card):
+    """The flagship step on the bucketed ('auto' on a bucketed batch, float32
+    and bfloat16), ELL and generic (identity added) backends at full width:
+    each card step against the CPU step on the same weights (compare_step),
+    its first loss against the 'csr' step's on the same graphs, its steps,
+    launches, peak memory and profile, then all interleaved with the 'csr'
+    float32 step."""
+    bucketed, _ = collate_records(ds.train, with_snorm=True,
+                                  bucket_by_degree=True)
+    ell, _ = collate_records(ds.train, with_snorm=True, with_ell=True)
+    ident = FLAGSHIP['aggregators'] + ('identity',)
+    ident_state = PNANetMolecules(
+        **dict(FLAGSHIP, aggregators=ident), num_atom_type=ds.num_atom_type,
+        num_bond_type=ds.num_bond_type, avg_d=ds.avg_d(), kernel='generic',
+        device='cpu', seed=0).state_dict()
+    log(f"layouts: bucketed batch {bucketed.bucket_spec} "
+        f"({bucketed.n_node_pad} node, {bucketed.n_edge_pad} edge slots); "
+        f"ELL table {tuple(ell.nbr_edge_ids.shape)}; CSR batch "
+        f"{csr_graph.n_node_pad} nodes, {csr_graph.n_edge_pad} edges")
+    cases = [
+        # name, kernel, batch, compute dtype, aggregators, launches per step
+        ('auto/bucketed f32', 'auto', bucketed, torch.float32, None,
+         ZERO_COUNTS),
+        ('auto/bucketed bf16', 'auto', bucketed, torch.bfloat16, None,
+         ZERO_COUNTS),
+        ('ell f32', 'ell', ell, torch.float32, None, ZERO_COUNTS),
+        ('generic+identity f32', 'generic', csr_graph, torch.float32, ident,
+         None),
+    ]
+    res, trainers = {}, {'csr f32': csr_trainer}
+    for name, kernel, graph, cdt, aggs, counts in cases:
+        bf16 = cdt == torch.bfloat16
+        log(f"layouts[{name}]:")
+        kw = dict(FLAGSHIP, num_atom_type=ds.num_atom_type,
+                  num_bond_type=ds.num_bond_type, avg_d=ds.avg_d(),
+                  kernel=kernel, compute_dtype=cdt)
+        if aggs is not None:
+            kw['aggregators'] = aggs
+        model = PNANetMolecules(**kw, device=dev)
+        cpu_model = PNANetMolecules(**kw, device='cpu')
+        for m in (model, cpu_model):
+            m.load_state_dict(state if aggs is None else ident_state)
+        g_dev, y_dev = graph.to(dev), labels.to(dev)
+        fk.reset_launch_counts()
+        first = compare_step(model, cpu_model, g_dev, y_dev, graph, labels,
+                             bf16)
+        torch.cuda.synchronize()
+        step_counts = fk.launch_counts()
+        if counts is not None and step_counts != counts:
+            raise AssertionError(f"layouts[{name}]: launches {step_counts}")
+        # the same function on another layout: the 'csr' step's loss, or
+        # for identity (no CSR backend) the generic step on the ELL batch
+        if aggs is None:
+            ref = csr[torch.bfloat16 if bf16 else torch.float32]
+            what = f"csr {'bf16' if bf16 else 'f32'}"
+        else:
+            other = PNANetMolecules(**kw, device=dev)
+            other.load_state_dict(ident_state)
+            ref, what = float(loss_and_grads(other, ell.to(dev), y_dev)), \
+                "generic on the ELL batch"
+            del other
+        if not abs(first - ref) <= LOSS_RTOL * abs(ref):
+            raise AssertionError(f"layouts[{name}]: first loss {first} vs "
+                                 f"{what} {ref}")
+        log(f"  first loss {first:.6f} vs {what} {ref:.6f} (rtol "
+            f"{LOSS_RTOL}); launches in the compared step {step_counts}")
+        res[name], trainers[name] = layout_steps(name, model, g_dev, y_dev,
+                                                 counts)
+        res[name].update(first_loss=first, ref_loss=ref,
+                         step_launches=step_counts)
+        del cpu_model
+    inter = interleaved_steps(trainers)
+    res['csr f32'] = dict(peak_mib=csr['stats']['peak_mib'],
+                          profile=csr['stats']['profile'])
+    log(f"layouts summary on {card} (interleaved median step, blocks of 3 "
+        "steps in turns and back, twice; device kernel time and kernels per "
+        "step from the profile; busy = device / interleaved step):")
+    for name, ms in inter.items():
+        r, prof = res[name], res[name]['profile']
+        r['step_ms'] = ms
+        if prof is not None:
+            r['busy'] = prof['device_ms'] / ms
+        log(f"  {name:22s} {ms:8.3f} ms  " + (
+            f"device {prof['device_ms']:.3f} ms  {prof['kernels']} kernels  "
+            f"busy {r['busy']:.3f}  " if prof else "profile not measured  ")
+            + f"peak {r['peak_mib']:.1f} MiB")
+    return res
+
+
+def zinc_bucketed_trainer(dev, card):
+    """The ZINC trainer with bucket_by_degree=True and kernel='auto' at its
+    JSON config's width, 2 epochs on the CLI's synthetic data: caps from
+    derive_bucket_caps over all splits and one batch shape; the first
+    trainer step card against CPU; falling loss; no K1 to K4 launch."""
+    cfg_json = cli_config(main_molecules, ZINC_CONFIG)
+    net, p = cfg_json['net_params'], cfg_json['params']
+    ds = ZincDataset.synthetic(**main_molecules.SYNTHETIC, seed=p['seed'])
+    cpu_model, fwd = main_molecules.make_model(net, ds, 'cpu', seed=p['seed'])
+    model, _ = main_molecules.make_model(net, ds, dev, seed=p['seed'])
+    model.load_state_dict(cpu_model.state_dict())
+    for m in (model, cpu_model):
+        with_kernel(m, 'auto')
+
+    def config():
+        cfg = main_molecules.make_config(p)
+        cfg.bucket_by_degree, cfg.epochs = True, 2
+        return cfg
+
+    caps = derive_bucket_caps(ds.train + ds.val + ds.test, p['batch_size'])
+    losses = {}
+    for where, m in (('card', model), ('cpu', cpu_model)):
+        trainer = RealworldTrainer(m, PNANetMolecules.loss, config(),
+                                   forward_args=fwd,
+                                   device=dev if where == 'card' else 'cpu')
+        trainer.bucket_caps = caps
+        losses[where], _ = trainer.run_epoch(ds.train[:p['batch_size']],
+                                             True, p['seed'])
+    worst = hold_step("zinc bucketed trainer step", model, cpu_model, losses)
+    log(f"layouts[zinc trainer] first bucketed step card vs CPU: loss "
+        f"{losses['card']:.6f} vs {losses['cpu']:.6f}, worst gradient error "
+        f"{worst:.3g} (tolerance {GRAD_TOL})")
+    model, _ = main_molecules.make_model(net, ds, dev, seed=p['seed'])
+    trainer = RealworldTrainer(with_kernel(model, 'auto'),
+                               PNANetMolecules.loss, config(),
+                               forward_args=fwd, device=dev)
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, best, hist = trainer.fit(ds, log_fn=lambda s: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fk.launch_counts()
+    if trainer.bucket_caps != caps:
+        raise AssertionError("trainer caps differ from derive_bucket_caps")
+    shapes = {(g.n_node_pad, g.n_edge_pad, g.bucket_spec)
+              for split in (ds.train, ds.val, ds.test)
+              for g, _ in batch_iterator(split, p['batch_size'], 0,
+                                         shuffle=False, bucket_caps=caps)}
+    train_loss = [h['train_loss'] for h in hist]
+    if len(shapes) != 1 or counts != ZERO_COUNTS or not (
+            all(map(math.isfinite, train_loss))
+            and train_loss[-1] < train_loss[0]):
+        raise AssertionError(f"zinc bucketed trainer: {len(shapes)} shapes, "
+                             f"launches {counts}, losses {train_loss}")
+    steps = sum(h['train_steps'] for h in hist)
+    train_s = sum(h['train_s'] for h in hist)
+    row = dict(caps=caps, shapes=len(shapes), launches=counts, wall_s=wall,
+               epoch_s=[h['epoch_s'] for h in hist], train_steps=steps,
+               steps_per_s=steps / train_s, train_loss=train_loss,
+               best_val=best['val_metric'], first_step_worst_grad=worst)
+    log(f"layouts[zinc trainer] bucket_by_degree=True, kernel='auto', 2 "
+        f"epochs in {wall:.2f} s on {card}: caps {caps}, {len(shapes)} batch "
+        f"shape; seconds per epoch {[round(x, 3) for x in row['epoch_s']]}; "
+        f"{steps} train steps at {row['steps_per_s']:.2f} steps/s; train "
+        f"loss {[round(x, 5) for x in train_loss]}; launches {counts}")
+    return row
+
+
+def hiv_ell_step(config, ds, dev):
+    """The HIV config's first step (dropout 0) on an ELL batch, card against
+    CPU, and against the same weights on the CSR batch on the card; no K1
+    to K4 launch on the ELL step."""
+    net, p = config['net_params'], config['params']
+    # dropout masks come from each device's own generator: none here
+    net = dict(net, dropout=0.0, in_feat_dropout=0.0)
+    recs = ds.train[:p['batch_size']]
+    ell, y = collate_records(recs, with_ell=True)
+    csr_b, _ = collate_records(recs)
+    cpu_model, _ = main_HIV.make_model(net, ds, 'cpu', seed=p['seed'])
+    state = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    losses, models = {}, {}
+    for where, graph in (('cpu', ell), ('card', ell), ('csr', csr_b)):
+        device = 'cpu' if where == 'cpu' else dev
+        m, _ = main_HIV.make_model(net, ds, device, seed=p['seed'])
+        m.load_state_dict(state)
+        m.train()
+        g = graph.to(device)
+        fk.reset_launch_counts()
+        loss = PNANetHIV.loss(m(g, g.node_feats), y.to(device), g.graph_mask)
+        loss.backward()
+        if where == 'card':
+            torch.cuda.synchronize()
+            counts = fk.launch_counts()
+        models[where], losses[where] = m, float(loss.detach())
+    worst = hold_step("hiv ell step", models['card'], models['cpu'], losses)
+    if counts != ZERO_COUNTS or not abs(losses['card'] - losses['csr']) <= \
+            LOSS_RTOL * abs(losses['csr']):
+        raise AssertionError(f"hiv ell step: launches {counts}, loss "
+                             f"{losses}")
+    log(f"layouts[hiv ell] ELL batch {tuple(ell.nbr_edge_ids.shape)}: loss "
+        f"card {losses['card']:.6f}, CPU {losses['cpu']:.6f}, CSR batch on "
+        f"the card {losses['csr']:.6f}; worst gradient error {worst:.3g}; "
+        f"launches {counts}")
+    return dict(losses, worst_grad=worst, launches=counts)
+
+
+def remat_step(ds, graph, labels, state, dev):
+    """The 'csr' flagship step with dropout 0.1, remat=True against
+    remat=False on the card, same weights and generator seed: loss rtol
+    1e-5, gradients within GRAD_TOL of their scale, batch-norm statistics
+    rtol 1e-6; K1 launches twice per layer (forward and recompute), K2
+    once; the peak memory of both, then both timed interleaved."""
+    g_dev, y_dev = graph.to(dev), labels.to(dev)
+    out = {}
+    for remat in (False, True):
+        model = PNANetMolecules(
+            **FLAGSHIP, num_atom_type=ds.num_atom_type,
+            num_bond_type=ds.num_bond_type, avg_d=ds.avg_d(), dropout=0.1,
+            remat=remat, max_degree=graph.max_in_degree, device=dev, seed=0)
+        model.load_state_dict(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fk.reset_launch_counts()
+        loss = float(loss_and_grads(model, g_dev, y_dev))
+        torch.cuda.synchronize()
+        out[remat] = dict(loss=loss, counts=fk.launch_counts(), model=model,
+                          peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+    plain, rm = out[False], out[True]
+    if not abs(rm['loss'] - plain['loss']) <= 1e-5 * abs(plain['loss']):
+        raise AssertionError(f"remat loss {rm['loss']} vs {plain['loss']}")
+    losses = {'card': rm['loss'], 'cpu': plain['loss']}
+    worst = hold_step("remat step", rm['model'], plain['model'], losses)
+    for (k, a), b in zip(rm['model'].state_dict().items(),
+                         plain['model'].state_dict().values()):
+        if "running" in k and not torch.allclose(a, b, rtol=1e-6, atol=0):
+            raise AssertionError(f"remat: batch-norm statistic {k}")
+    want = dict(ZERO_COUNTS, csr_moment_sketch=2 * N_LAYERS,
+                csr_dmsg=N_LAYERS)
+    if rm['counts'] != want or plain['counts']['csr_moment_sketch'] \
+            != N_LAYERS:
+        raise AssertionError(f"remat launches {rm['counts']}, plain "
+                             f"{plain['counts']}")
+    inter = interleaved_steps({
+        remat: (out[remat]['model'], make_optimizer(out[remat]['model']),
+                g_dev, y_dev) for remat in (False, True)})
+    log(f"layouts[remat] csr f32 step, dropout 0.1: loss {rm['loss']:.6f} "
+        f"vs {plain['loss']:.6f} without remat; worst gradient error "
+        f"{worst:.3g}; statistics within rtol 1e-6; launches {rm['counts']} "
+        f"vs {plain['counts']}; peak {rm['peak_mib']:.1f} vs "
+        f"{plain['peak_mib']:.1f} MiB; interleaved median step "
+        f"{inter[True]:.3f} vs {inter[False]:.3f} ms")
+    return dict(loss=rm['loss'], plain_loss=plain['loss'], worst_grad=worst,
+                launches=rm['counts'], peak_mib=rm['peak_mib'],
+                plain_peak_mib=plain['peak_mib'], step_ms=inter[True],
+                plain_step_ms=inter[False])
+
+
+def layouts_phase(ds, graph, labels, state, runs, csr_trainer, hiv, dev,
+                  card):
+    """Phase 12 of the module docstring."""
+    t0 = time.perf_counter()
+    csr = {cdt: runs['csr', cdt]['first_loss']
+           for cdt in (torch.float32, torch.bfloat16)}
+    csr['stats'] = runs['csr', torch.float32]
+    res = dict(flagship=flagship_layouts(ds, graph, labels, state, csr,
+                                         csr_trainer, dev, card),
+               zinc_trainer=zinc_bucketed_trainer(dev, card),
+               hiv_ell=hiv_ell_step(*hiv, dev),
+               remat=remat_step(ds, graph, labels, state, dev))
+    res['seconds'] = time.perf_counter() - t0
+    log(f"layouts: phase took {res['seconds']:.1f} s")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1573,6 +1909,9 @@ def main():
         runs[kernel, cdt], trainers[kernel, cdt] = train_phase(
             ds, graph, labels, dev, card, kernel, cdt, state)
     inter = interleaved_steps(trainers)
+    layouts = layouts_phase(ds, graph, labels, state, runs,
+                            trainers['csr', torch.float32], (hcfg, hds), dev,
+                            card)
     del trainers
     log("train interleaved (blocks of 3 steps, A B C D D C B A twice): "
         "median step " + ", ".join(
@@ -1650,7 +1989,8 @@ def main():
     multitask.pop("launches")
     log(json.dumps({"kernels": kernels, "card": card, "pipeline": summary,
                     "resume_worst_rel_diff": resume_worst,
-                    "routing": routing, "multitask": multitask}))
+                    "routing": routing, "multitask": multitask,
+                    "layouts": layouts}, default=str))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,29 @@
-"""Fused-towers PNA layer on the CSR kernels.
+"""Fused-towers PNA layer on every aggregation backend of the JAX layer.
 
-Counterpart of ``pna_tpu/nn/fused.py::PNALayerFused`` on two backends, named
-after the port's kernels: the JAX package's ``kernel='pallas'`` (the
-receiver-sorted moment-sketch bank, ``pna_tpu/ops/pallas_bank.py``) is this
-port's ``kernel='csr'`` (``pna_tpu_torch/ops/csr_bank.py``, kernels K1/K2),
-and its ``kernel='pallas_fused'`` (``pna_tpu/ops/pallas_fused.py``) is
-``kernel='csr_fused'`` (``pna_tpu_torch/ops/csr_fused.py``, kernels K3/K4).
+Counterpart of ``pna_tpu/nn/fused.py::PNALayerFused``.  The backends
+(``kernel=``):
+
+* ``'csr'``, the JAX ``'pallas'``: the receiver-sorted moment-sketch bank
+  (``ops/csr_bank.py``, kernels K1/K2);
+* ``'csr_fused'``, the JAX ``'pallas_fused'``: pretrans and sketch in the
+  kernels (``ops/csr_fused.py``, K3/K4);
+* ``'bucketed'``: dense reductions over the degree-bucketed layout
+  (``ops/bucketed.py``; the moment path when every aggregator derives from
+  the moments, else ``raw_bank``), the receiver gather a broadcast;
+* ``'ell'``: the ELL bank with its hand-written backward
+  (``ops/fused_vjp.py::make_raw_bank``);
+* ``'generic'``: the aggregator x scaler bank of ``nn/sparse.py::
+  aggregate_bank`` (ELL when the batch has the table, else the segment form,
+  with K1/K2 for its aggregators on the card), the only one that takes
+  ``identity``;
+* ``'auto'``: ``resolve_backend`` picks from the layout the batch carries.
+
+``resolve_backend`` ranks bucketed > ELL > CSR kernels > generic, the JAX
+package's order, which was measured on a TPU; it has not been measured on
+the H100 yet.  ``'csr'`` and ``'csr_fused'`` need ``edge_ptr`` and raise
+``ValueError`` without it; a forced ``'bucketed'`` or ``'ell'`` on a batch
+without its table falls through to generic, as in JAX.
+
 The math is the JAX layer's:
 
 * stacked tower parameters ``kernel_i [T, in_i, out_i]``, ``bias_i
@@ -15,30 +33,30 @@ The math is the JAX layer's:
 * a split-kernel pretrans: ``msg = src K_src + dst K_dst (+ e K_e) + b``, the
   concat never built; per-tower contractions are one matmul with a
   block-diagonal weight (``_ein``), or one matmul when every tower shares its
-  input (``_ein_shared``, ``divide_input=False``).  On ``csr`` the message is
-  formed per edge and reduced by the CSR bank; on ``csr_fused`` only the node
-  halves ``u = h K_src`` and ``v = h K_dst + b`` are formed and the kernels
-  build each message on chip;
+  input (``_ein_shared``, ``divide_input=False``).  On ``csr_fused`` only the
+  node halves ``u = h K_src`` and ``v = h K_dst + b`` are formed and the
+  kernels build each message on chip;
 * a posttrans with the scaler axis folded into the output: the aggregator
-  tensor Z [N, A, T*Ft] meets a weight laid out to match it, and the S scaler
-  weights apply to the narrower [N, T, O, S] result;
+  tensor Z [N, A, T*Ft] meets a weight laid out to match it (on the
+  bucketed moment path, each aggregator meets its own slice of it as it is
+  derived), and the S scaler weights apply to the narrower [N, T, O, S]
+  result; the generic path contracts its materialised [N, S*A*T*Ft] bank;
 * graph-norm, masked batch-norm, dropout, the ``mixing`` linear,
   leaky_relu(0.01), and the residual when ``in_dim == out_dim``.
 
 ``compute_dtype=torch.bfloat16`` rounds at the JAX layer's places: the layer
 input, every matmul operand (the products are then taken and summed in
 float32, the JAX ``preferred_element_type=float32``: the operands are widened
-to float32, which is exact, and the matmul runs in float32), the ``csr``
-message before the bank, the ``csr_fused`` inputs u, v, ef and ke, and the
-scaler contraction's operands.  Statistics, batch-norm, mixing and the
-residual stay float32.
+to float32, which is exact, and the matmul runs in float32), the message
+before the csr, bucketed and ELL banks (which widen it to float32), the
+``csr_fused`` inputs u, v, ef and ke, and the scaler contraction's operands.
+Statistics, batch-norm, mixing and the residual stay float32.
 
 ``csr_fused`` forms only the first pretrans layer inside its kernels, so it
 takes ``pretrans_layers=1`` only and raises ``ValueError`` otherwise, as the
 JAX fused backend does.  Dropout draws its mask from ``dropout_generator``
-(``nn/layers.py::Dropout``).  The port's ``Graph`` always carries the
-receiver-sorted ``edge_ptr`` both backends need.  The other backends and
-options raise ``NotImplementedError`` naming the ROADMAP item that ports
+(``nn/layers.py::Dropout``).  Tower tensor parallelism and the distributed
+arguments raise ``NotImplementedError`` naming the ROADMAP item that ports
 them.
 """
 
@@ -54,25 +72,17 @@ from pna_tpu_torch.device import DeviceLike, resolve_device
 from pna_tpu_torch.graph import Graph
 from pna_tpu_torch.nn.layers import (Dropout, dense, xavier_uniform_gain,
                                      zeros_init)
-from pna_tpu_torch.nn.sparse import MaskedBatchNorm
-from pna_tpu_torch.ops import csr_bank, csr_fused
-from pna_tpu_torch.ops.scalers import SCALERS, scaler_weights
+from pna_tpu_torch.nn.sparse import (MaskedBatchNorm, aggregate_bank,
+                                     bank_layout, check_bank)
+from pna_tpu_torch.ops import bucketed, csr_bank, csr_fused, fused_vjp
+from pna_tpu_torch.ops.scalers import scaler_weights
 
-KERNELS = ('csr', 'csr_fused')
+KERNELS = ('auto', 'csr', 'csr_fused', 'bucketed', 'ell', 'generic')
 _RENAMED = {'pallas': 'csr', 'pallas_fused': 'csr_fused'}
-_NOT_PORTED = {
-    'auto': "ROADMAP Queue 1 item 12 (layout choice)",
-    'bucketed': "ROADMAP Queue 1 item 12 (degree-bucketed layout)",
-    'ell': "ROADMAP Queue 1 item 12 (ELL layout)",
-    'generic': "ROADMAP Queue 1 items 3 and 12 (segment bank)",
-}
 
 
 def check_backend(kernel: str, compute_dtype=None, tp_axis=None) -> None:
-    """Raise for a backend or option this slice of the port does not run."""
-    if kernel in _NOT_PORTED:
-        raise NotImplementedError(f"kernel={kernel!r} is not ported yet: "
-                                  f"{_NOT_PORTED[kernel]}")
+    """Raise for a backend or option the port does not run."""
     if kernel in _RENAMED:
         raise ValueError(f"the port names the JAX {kernel!r} backend "
                          f"{_RENAMED[kernel]!r}")
@@ -80,11 +90,70 @@ def check_backend(kernel: str, compute_dtype=None, tp_axis=None) -> None:
         raise ValueError(f"unknown kernel {kernel!r}")
     if compute_dtype not in (None, torch.float32, torch.bfloat16):
         raise NotImplementedError(f"compute_dtype={compute_dtype} is not "
-                                  "ported: float32 and bfloat16 are "
-                                  "(ROADMAP Queue 1 item 6)")
+                                  "ported: float32 and bfloat16 are, the "
+                                  "two dtypes bench.py times (ROADMAP Queue "
+                                  "1 item 7)")
     if tp_axis is not None:
         raise NotImplementedError("tower tensor parallelism is not ported "
                                   "yet: ROADMAP Queue 1 item 13")
+
+
+def resolve_backend(kernel: str, graph: Graph, aggregators: Sequence[str],
+                    scalers: Sequence[str], device) -> str:
+    """The backend a layer runs on this batch: 'bucketed', 'ell', 'csr',
+    'csr_fused' or 'generic' (``pna_tpu/nn/fused.py``'s choice).
+
+    * 'bucketed' under 'auto' or 'bucketed' when the batch has
+      ``bucket_spec``, no aggregator is 'identity' and every aggregator is
+      one ``ops/bucketed.py`` computes;
+    * else 'ell' under 'auto' or 'ell' when it has ``nbr_edge_ids`` and the
+      ELL bank covers the aggregators and scalers;
+    * else 'csr' when forced, or under 'auto' on a ``cuda`` device when the
+      batch has ``edge_ptr`` and the CSR bank covers the aggregators (the
+      JAX package takes its kernel under 'auto' only on a TPU: on the CPU
+      'auto' resolves as it does there);
+    * else 'generic'.
+
+    'csr' or 'csr_fused' on a batch without ``edge_ptr``, or with
+    aggregators their banks do not cover, raises ``ValueError``."""
+    scalers_ok = all(s in fused_vjp._SCALERS for s in scalers)
+    no_ident = 'identity' not in aggregators
+    if kernel == 'csr_fused':
+        if graph.edge_ptr is None:
+            raise ValueError("kernel='csr_fused' requires graph.edge_ptr "
+                             "(batch_graphs(sort_edges=True))")
+        if not (scalers_ok and csr_bank.supports(aggregators)):
+            raise ValueError("kernel='csr_fused' requires supported "
+                             f"aggregators/scalers, got {aggregators}/"
+                             f"{scalers}")
+        return 'csr_fused'
+    if (kernel in ('auto', 'bucketed') and graph.bucket_spec is not None
+            and scalers_ok and no_ident and bucketed.supports(aggregators)):
+        return 'bucketed'
+    if (kernel in ('auto', 'ell') and graph.nbr_edge_ids is not None
+            and no_ident and fused_vjp.supports(aggregators, scalers)):
+        return 'ell'
+    csr_ok = (graph.edge_ptr is not None and scalers_ok
+              and csr_bank.supports(aggregators))
+    if kernel == 'csr':
+        if not csr_ok:
+            raise ValueError("kernel='csr' requires graph.edge_ptr "
+                             "(batch_graphs(sort_edges=True)) and supported "
+                             "aggregators/scalers")
+        return 'csr'
+    if kernel == 'auto' and csr_ok and torch.device(device).type == 'cuda':
+        return 'csr'
+    return 'generic'
+
+
+def backend_layout(backend: str, graph: Graph, max_degree: int = 0
+                   ) -> Optional[csr_bank.CSRLayout]:
+    """The CSR layout ``backend`` takes on this batch: the row pointers for
+    'csr' and 'csr_fused', the sparse bank's (``bank_layout``) for
+    'generic', none for 'bucketed' and 'ell'."""
+    if backend in ('csr', 'csr_fused'):
+        return csr_bank.layout_from_graph(graph, max_degree)
+    return bank_layout(graph, max_degree) if backend == 'generic' else None
 
 
 def _round(x, cdt):
@@ -163,12 +232,12 @@ class PNALayerFused(nn.Module):
             raise ValueError("kernel='csr_fused' supports pretrans_layers=1 "
                              "only: its kernels form the first pretrans "
                              "layer's message")
-        if not csr_bank.supports(aggregators):
+        if kernel in ('csr', 'csr_fused') and not csr_bank.supports(
+                aggregators):
             raise ValueError(f"kernel={kernel!r} supports aggregators "
                              f"{csr_bank.AGGS} (no 'identity'), got "
                              f"{aggregators}")
-        if not all(s in SCALERS for s in scalers):
-            raise ValueError(f"unsupported scalers {scalers}")
+        check_bank(aggregators, scalers)
         if divide_input and in_dim % towers:
             raise ValueError(f"in_dim {in_dim} not divisible by {towers}")
         if out_dim % towers:
@@ -208,12 +277,16 @@ class PNALayerFused(nn.Module):
                 sender_table=None, overlap=None) -> torch.Tensor:
         """h [N, in_dim], e [E, edge_dim] (edge features) -> [N, out_dim].
         ``layout`` is the batch's CSR layout, shared by every layer; built
-        here when not given."""
+        here when not given and the backend takes it (``csr``,
+        ``csr_fused``, and ``generic`` on a batch with ``edge_ptr`` and no
+        ELL table)."""
         if sender_table is not None or overlap is not None:
             raise NotImplementedError("the distributed layer path is not "
                                       "ported yet: ROADMAP Queue 1 item 13")
+        backend = resolve_backend(self.kernel, graph, self.aggregators,
+                                  self.scalers, h.device)
         if layout is None:
-            layout = csr_bank.layout_from_graph(graph, self.max_degree)
+            layout = backend_layout(backend, graph, self.max_degree)
         T, Ft, Fo = self.towers, self.ft, self.fo
         A, S = len(self.aggregators), len(self.scalers)
         N, E = h.shape[0], graph.n_edge_pad
@@ -223,7 +296,19 @@ class PNALayerFused(nn.Module):
         # ---- pretrans: split-kernel first layer, no concat built ----
         k0, b0 = self.pretrans.layer(0)
         k_src, k_dst = k0[:, :Ft], k0[:, Ft:2 * Ft]
-        if self.kernel == 'csr_fused':
+
+        def pretrans_nodes(x):
+            """x K_src + x K_dst + b0 (and the later layers) per node, the
+            message a node sends itself ('identity')."""
+            if self.divide_input:
+                xs = x.reshape(N, T, Ft)
+                m = _ein(xs, k_src, cdt) + _ein(xs, k_dst, cdt)
+            else:
+                m = _ein_shared(x, k_src, cdt) + _ein_shared(x, k_dst, cdt)
+            return self.pretrans.rest(m + b0, cdt)
+
+        Z = moments = None
+        if backend == 'csr_fused':
             # node halves only: the kernels form u[snd] + v[rcv] (+ e ke)
             if self.divide_input:
                 u = _ein(hb.reshape(N, T, Ft), k_src, cdt)
@@ -240,8 +325,14 @@ class PNALayerFused(nn.Module):
                     -1, T * Ft)                             # [Fe, T*Ft]
             Z = csr_fused.csr_fused_bank(u, v, ef, ke, layout,
                                          self.aggregators)  # [N, A, T*Ft]
+            deg = layout.deg
         else:
-            src, dst = hb[graph.senders], hb[graph.receivers]
+            src = hb[graph.senders]
+            if graph.bucket_spec is not None:
+                # the receiver gather is a broadcast in the bucketed layout
+                dst = bucketed.expand_to_edges(hb, graph.bucket_spec)
+            else:
+                dst = hb[graph.receivers]
             if self.divide_input:
                 msg = (_ein(src.reshape(E, T, Ft), k_src, cdt)
                        + _ein(dst.reshape(E, T, Ft), k_dst, cdt))
@@ -250,27 +341,79 @@ class PNALayerFused(nn.Module):
                        + _ein_shared(dst, k_dst, cdt))
             if self.edge_features:
                 msg = msg + _ein_shared(e, k0[:, 2 * Ft:], cdt)
-            # stored in the compute dtype; the bank widens it to float32
-            msg = self.pretrans.rest(msg + b0, cdt).to(cdt)  # [E, T, Ft]
-            Z = csr_bank.csr_raw_bank(msg.reshape(E, T * Ft), layout,
-                                      self.aggregators)     # [N, A, T*Ft]
-        w = scaler_weights(self.scalers, layout.deg, self.avg_d)   # [S, N]
+            msg = self.pretrans.rest(msg + b0, cdt)         # [E, T, Ft]
+            if backend != 'generic':
+                # stored in the compute dtype; the banks widen to float32
+                msg = msg.to(cdt).reshape(E, T * Ft)
+            if backend == 'csr':
+                Z = csr_bank.csr_raw_bank(msg, layout, self.aggregators)
+                deg = layout.deg
+            elif backend == 'bucketed':
+                spec, in_deg = graph.bucket_spec, graph.in_deg
+                if all(a in bucketed.MOMENT_DERIVABLE
+                       for a in self.aggregators):
+                    moments = bucketed.moment_stats(msg, spec, in_deg=in_deg)
+                else:
+                    Z = bucketed.raw_bank(msg, spec, self.aggregators,
+                                          in_deg=in_deg)
+                deg = (in_deg if in_deg is not None else torch.from_numpy(
+                    bucketed.degrees(spec)).to(h.device))
+            elif backend == 'ell':
+                bank = fused_vjp.make_raw_bank(graph.receivers,
+                                               graph.edge_mask)
+                Z = bank(msg, graph.nbr_edge_ids, graph.nbr_mask,
+                         self.aggregators)
+                deg = graph.nbr_mask.sum(dim=1).to(torch.float32)
 
         # ---- posttrans with the scaler axis folded into the output ----
         kp, bp = self.posttrans.layer(0)
         k_h = kp[:, :Ft]                                    # [T, Ft, Fo]
-        # rows of kp per tower: [0:Ft] = h part; Ft + s*A*Ft + a*Ft + f
-        k_agg = kp[:, Ft:].reshape(T, S, A, Ft, Fo)
-        if self.divide_input:
-            out = _ein(hb.reshape(N, T, Ft), k_h, cdt)
+        if backend == 'generic':
+            self_msg = None
+            if 'identity' in self.aggregators:
+                self_msg = pretrans_nodes(hb).reshape(N, T * Ft)
+            agg = aggregate_bank(graph, msg.reshape(E, T * Ft),
+                                 self.aggregators, self.scalers, self.avg_d,
+                                 self_msg=self_msg, layout=layout)
+            # rows Ft + (s*A + a)*Ft + f of tower t <- bank column
+            # ((s*A + a)*T + t)*Ft + f
+            k_agg = kp[:, Ft:].reshape(T, S * A, Ft, Fo)
+            if self.divide_input:
+                out = torch.einsum('ntf,tfo->nto',
+                                   _round(hb.reshape(N, T, Ft), cdt),
+                                   _round(k_h, cdt))
+            else:
+                out = _ein_shared(hb, k_h, cdt)
+            out = out + torch.einsum(
+                'nxtf,txfo->nto', _round(agg.reshape(N, S * A, T, Ft), cdt),
+                _round(k_agg, cdt)) + bp
         else:
-            out = _ein_shared(hb, k_h, cdt)
-        eye = torch.eye(T, dtype=kp.dtype, device=kp.device)
-        W = _round(torch.einsum('tsafo,tu->atfuos', k_agg, eye).reshape(
-            A * T * Ft, T * Fo * S), cdt)
-        y = (_round(Z.reshape(N, A * T * Ft), cdt) @ W).reshape(N, T, Fo, S)
-        out = out + torch.einsum('ntos,sn->nto', _round(y, cdt),
-                                 _round(w, cdt)) + bp
+            w = scaler_weights(self.scalers, deg, self.avg_d)   # [S, N]
+            # rows of kp per tower: [0:Ft] = h part; Ft + s*A*Ft + a*Ft + f
+            k_agg = kp[:, Ft:].reshape(T, S, A, Ft, Fo)
+            if self.divide_input:
+                out = _ein(hb.reshape(N, T, Ft), k_h, cdt)
+            else:
+                out = _ein_shared(hb, k_h, cdt)
+            eye = torch.eye(T, dtype=kp.dtype, device=kp.device)
+            if moments is not None:
+                # each aggregator derived and contracted with its own slice
+                # of the weight: the stacked Z is never formed
+                y = 0
+                for i, a in enumerate(self.aggregators):
+                    Za = bucketed.derive_aggregator(a, *moments)
+                    Wa = _round(torch.einsum(
+                        'tsfo,tu->tfuos', k_agg[:, :, i], eye).reshape(
+                            T * Ft, T * Fo * S), cdt)
+                    y = y + (_round(Za, cdt) @ Wa).reshape(N, T, Fo, S)
+            else:
+                W = _round(torch.einsum('tsafo,tu->atfuos', k_agg,
+                                        eye).reshape(A * T * Ft, T * Fo * S),
+                           cdt)
+                y = (_round(Z.reshape(N, A * T * Ft), cdt) @ W).reshape(
+                    N, T, Fo, S)
+            out = out + torch.einsum('ntos,sn->nto', _round(y, cdt),
+                                     _round(w, cdt)) + bp
         out = self.posttrans.rest(out, cdt).reshape(N, T * Fo)
 
         if self.graph_norm:

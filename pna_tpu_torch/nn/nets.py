@@ -17,34 +17,50 @@ Counterpart of ``pna_tpu/nn/nets.py``:
 
 ``fused_towers=True`` (the default) stacks ``PNALayerFused``; False stacks
 ``PNALayerSparse`` (separate towers, float32 only: ``kernel`` and
-``max_degree`` do not reach them, as in the JAX nets).  The CSR layout of a
-batch is built once and shared by every layer; ``kernel`` (``'csr'`` or
-``'csr_fused'``) and ``compute_dtype`` (float32 or bfloat16) reach every
-fused layer.  Weights are drawn from a CPU generator seeded with ``seed``;
-dropout masks from ``generator``, a generator on the net's device (one
-seeded with ``seed`` when not given), shared by every dropout of the net:
+``max_degree`` do not reach them, as in the JAX nets).  ``kernel`` (any
+backend of ``nn/fused.py``; the port's default is ``'csr'`` where the JAX
+nets' is ``'auto'``) and ``compute_dtype`` (float32 or bfloat16) reach every
+fused layer.  The CSR layout of a batch is built once per forward and shared
+by every layer, and only where the layers take it: a bucketed batch has no
+``edge_ptr``, and the bucketed and ELL backends need no layout.
+
+``remat=True`` (``PNANetMolecules``, fused layers) recomputes each layer in
+the backward pass (``torch.utils.checkpoint``, non-reentrant), as the JAX
+net's ``nn.remat`` does: the saved residuals shrink to the layers' inputs.
+The recompute repeats the forward exactly: the dropout generator is set
+back to its state at the layer's forward and the batch-norm running
+statistics to theirs (the shift the masked batch norm starts from), and
+both are restored afterwards, so the generator advances and the statistics
+move once per step, as without remat.  The recompute launches the layer's
+forward kernels (K1 or K3) a second time.
+
+Weights are drawn from a CPU generator seeded with ``seed``; dropout masks
+from ``generator``, a generator on the net's device (one seeded with
+``seed`` when not given), shared by every dropout of the net:
 ``net.generator``.  ``AtomEncoder`` and ``BondEncoder`` sum one embedding per
 OGB feature column (submodules ``emb_{i}``, xavier-uniform).
-
-Not ported: ``remat`` (ROADMAP Queue 1 item 6), which raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from pna_tpu_torch.device import DeviceLike, resolve_device
 from pna_tpu_torch.graph import Graph
-from pna_tpu_torch.nn.fused import PNALayerFused, check_backend
+from pna_tpu_torch.nn.fused import (PNALayerFused, backend_layout,
+                                   check_backend, resolve_backend)
 from pna_tpu_torch.nn.layers import (Dropout, GRUUpdate, MLPReadout, dense,
                                      torch_linear_bias_init,
                                      torch_linear_init, xavier_uniform_gain)
-from pna_tpu_torch.nn.sparse import PNALayerSparse, PNASimpleLayerSparse
+from pna_tpu_torch.nn.sparse import (PNALayerSparse, PNASimpleLayerSparse,
+                                    bank_layout)
 from pna_tpu_torch.ops import csr_bank
 from pna_tpu_torch.ops.readout import readout
 
@@ -97,12 +113,14 @@ class _PNAStack(nn.Module):
                      divide_input_last, edge_feat, edge_dim,
                      pretrans_layers, posttrans_layers, gru_enable,
                      fused_towers, kernel, max_degree, compute_dtype,
-                     n_out, gen):
+                     n_out, gen, remat=False):
         check_backend(kernel, compute_dtype)
         if not fused_towers and compute_dtype not in (None, torch.float32):
             raise ValueError("fused_towers=False runs in float32 only")
         self.edge_feat, self.readout_type = edge_feat, readout_type
-        self.max_degree = max_degree
+        self.max_degree, self.fused_towers = max_degree, fused_towers
+        # as the JAX net, remat applies to fused layers only
+        self.remat = remat and fused_towers
         layers = []
         for i in range(n_layers):
             last = i == n_layers - 1
@@ -130,15 +148,66 @@ class _PNAStack(nn.Module):
         self.gru = GRUUpdate(hidden_dim, gen) if gru_enable else None
         self.MLP_layer = MLPReadout(out_dim, n_out, generator=gen)
 
+    def _layout(self, graph: Graph, device) -> Optional[csr_bank.CSRLayout]:
+        """The batch's CSR layout where the layers take one, else None (the
+        layers share their kernel, aggregators and scalers)."""
+        if not self.fused_towers:
+            return bank_layout(graph, self.max_degree)
+        first = self.layers[0]
+        return backend_layout(resolve_backend(
+            first.kernel, graph, first.aggregators, first.scalers, device),
+            graph, self.max_degree)
+
     def _stack(self, graph: Graph, h: torch.Tensor,
                e: Optional[torch.Tensor]) -> torch.Tensor:
-        layout = csr_bank.layout_from_graph(graph, self.max_degree)
+        layout = self._layout(graph, h.device)
         for i, layer in enumerate(self.layers):
-            h_t = layer(graph, h, e, layout)
+            if self.remat and self.training and torch.is_grad_enabled():
+                h_t = checkpoint(layer, graph, h, e, layout,
+                                 use_reentrant=False,
+                                 context_fn=functools.partial(
+                                     _replay_contexts, layer,
+                                     self.generator))
+            else:
+                h_t = layer(graph, h, e, layout)
             if self.gru is not None and i < len(self.layers) - 1:
                 h_t = self.gru(h, h_t)
             h = h_t
         return self.MLP_layer(readout(self.readout_type, graph, h))
+
+
+def _replay_contexts(layer: nn.Module, generator: torch.Generator):
+    """The two contexts of one checkpointed layer call: the first records
+    the dropout generator's state and the layer's buffers (the batch-norm
+    running statistics) as the forward finds them; the second, around the
+    recompute in the backward pass, puts those back, so the recompute draws
+    the same dropout mask and normalises with the same shift, then restores
+    the state the step has reached, so the statistics move once."""
+    saved = {}
+
+    @contextlib.contextmanager
+    def forward():
+        saved['rng'] = generator.get_state()
+        saved['buffers'] = [b.clone() for b in layer.buffers()]
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        rng_now = generator.get_state()
+        buffers_now = [b.clone() for b in layer.buffers()]
+        generator.set_state(saved['rng'])
+        with torch.no_grad():
+            for b, v in zip(layer.buffers(), saved['buffers']):
+                b.copy_(v)
+        try:
+            yield
+        finally:
+            generator.set_state(rng_now)
+            with torch.no_grad():
+                for b, v in zip(layer.buffers(), buffers_now):
+                    b.copy_(v)
+
+    return forward(), recompute()
 
 
 def _generator(generator, device, seed):
@@ -168,9 +237,6 @@ class PNANetMolecules(_PNAStack):
                  seed: int = 0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if remat:
-            raise NotImplementedError("remat is not ported yet: ROADMAP "
-                                      "Queue 1 item 6")
         device = resolve_device(device)
         self.generator = _generator(generator, device, seed)
         gen = torch.Generator().manual_seed(seed)
@@ -190,7 +256,7 @@ class PNANetMolecules(_PNAStack):
                           divide_input_last, edge_feat, edge_dim,
                           pretrans_layers, posttrans_layers, gru_enable,
                           fused_towers, kernel, max_degree, compute_dtype,
-                          1, gen)
+                          1, gen, remat)
         self.to(device)
 
     def forward(self, graph: Graph, h_idx: torch.Tensor,
@@ -300,7 +366,7 @@ class PNANetHIV(nn.Module):
     def forward(self, graph: Graph, x: torch.Tensor) -> torch.Tensor:
         """x [N, 9] OGB atom features -> logits [G_pad, 1]."""
         h = self.in_feat_dropout(self.embedding_h(x))
-        layout = csr_bank.layout_from_graph(graph)
+        layout = bank_layout(graph)
         for layer in self.layers:
             h = layer(graph, h, layout)
         return self.MLP_layer(readout(self.readout_type, graph, h))

@@ -1,24 +1,33 @@
 """Sparse (edge-list) PNA, GCN, GAT and GIN layers and masked batch
 normalisation.
 
-Counterpart of ``pna_tpu/nn/sparse.py``: ``aggregate_bank`` (its segment
-path; the ELL path is ROADMAP Queue 1 item 12), ``PNATowerSparse``,
-``PNALayerSparse``, ``PNASimpleLayerSparse``, ``MaskedBatchNorm``,
-``GCNLayerSparse``, ``GATLayerSparse`` and ``GINLayerSparse``.  The GCN, GAT
-and GIN layers run on the plain segment ops of ``ops/segment.py``
-(``segment_sum``, ``segment_softmax_weights``), as the JAX layers run on the
-JAX package's plain segment ops, on the card too: they do not go through
-the CSR bank.
+Counterpart of ``pna_tpu/nn/sparse.py``: ``aggregate_bank``,
+``PNATowerSparse``, ``PNALayerSparse``, ``PNASimpleLayerSparse``,
+``MaskedBatchNorm``, ``GCNLayerSparse``, ``GATLayerSparse`` and
+``GINLayerSparse``.  The GCN, GAT and GIN layers run on the plain segment
+ops of ``ops/segment.py`` (``segment_sum``, ``segment_softmax_weights``), as
+the JAX layers run on the JAX package's plain segment ops, on the card too:
+they do not go through the CSR bank.
 
 The bank concatenates the aggregators on the feature axis, then one block
-per scaler, as the JAX bank does.  The scalers take the raw in-degree of the
-receiver (``CSRLayout.deg``: 0 on pad and isolated nodes).  Where the bank
-runs: on the card, the aggregators the CSR kernels compute (``csr_bank.AGGS``:
-mean, sum, max, min, var, std) go through ``csr_raw_bank`` (K1 forward, K2
-backward) in one call; the others (identity, normalised_mean, softmax,
-softmin, moments), and every aggregator on the CPU, take the segment form of
-``ops/aggregators.py``, which is also the plain version the card is held
-against.  The choice follows the aggregator set and the device only.
+per scaler, as the JAX bank does.  Where it runs:
+
+* a batch that carries the ELL layout (``Graph.nbr_edge_ids``) takes every
+  aggregator through ``ops/ell.py`` (a gather and masked reductions over
+  the padded neighbour axis, plain torch on every device), and the scalers
+  take the degree of its rows;
+* otherwise, on the card, the aggregators the CSR kernels compute
+  (``csr_bank.AGGS``: mean, sum, max, min, var, std) go through
+  ``csr_raw_bank`` (K1 forward, K2 backward) in one call, given the batch's
+  CSR layout; the others (identity, normalised_mean, softmax, softmin,
+  moments), every aggregator on the CPU, and every aggregator of a batch
+  without ``edge_ptr`` (a bucketed one), take the segment form of
+  ``ops/aggregators.py``, which is also the plain version the card is held
+  against.  The scalers take the raw in-degree of the receiver (0 on pad and
+  isolated nodes).
+
+The choice follows the batch's layout, the aggregator set and the device
+only.  ``bank_layout`` gives the CSR layout a batch's bank needs, or None.
 
 Pretrans concatenates (src, dst[, edge]), the DGL tower's order; ``identity``
 aggregates the message a node sends itself (pretrans of (h, h[, 0])).
@@ -40,19 +49,32 @@ from pna_tpu_torch.nn.layers import (MLP, Dropout, FCLayer, dense,
 from pna_tpu_torch.ops import csr_bank
 from pna_tpu_torch.ops import segment as seg
 from pna_tpu_torch.ops.aggregators import SEGMENT_AGGREGATORS, SegmentCtx
+from pna_tpu_torch.ops.ell import ELL_AGGREGATORS, EllCtx
 from pna_tpu_torch.ops.scalers import SCALERS
 
 
+def bank_layout(graph: Graph, max_degree: int = 0
+                ) -> Optional[csr_bank.CSRLayout]:
+    """The CSR layout ``aggregate_bank`` takes for this batch: None when the
+    batch carries the ELL table (the bank then takes that) or has no
+    ``edge_ptr``."""
+    if graph.nbr_edge_ids is not None or graph.edge_ptr is None:
+        return None
+    return csr_bank.layout_from_graph(graph, max_degree)
+
+
 def node_bank(graph: Graph, msg: torch.Tensor, aggregators: Sequence[str],
-              layout: csr_bank.CSRLayout,
+              layout: Optional[csr_bank.CSRLayout],
               self_msg: Optional[torch.Tensor] = None,
               relu_clamp: bool = True) -> torch.Tensor:
-    """The aggregators over receiver-sorted messages: msg [E, ..., F] ->
-    [N, ..., A*F], aggregators concatenated on the feature axis in caller
-    order.  ``relu_clamp=False`` leaves 'var' unclamped (PyG's var)."""
+    """The aggregators over the edge messages: msg [E, ..., F] -> [N, ...,
+    A*F], aggregators concatenated on the feature axis in caller order.
+    ``layout`` is the batch's CSR layout (None: the segment form for every
+    aggregator).  ``relu_clamp=False`` leaves 'var' unclamped (PyG's
+    var)."""
     parts = {}
     kern = ([a for a in aggregators if a in csr_bank.AGGS]
-            if msg.is_cuda else [])
+            if msg.is_cuda and layout is not None else [])
     if kern:
         z = csr_bank.csr_raw_bank(msg.reshape(msg.shape[0], -1), layout,
                                   kern, relu_clamp)      # [N, K, prod(...)]
@@ -78,13 +100,24 @@ def aggregate_bank(graph: Graph, msg: torch.Tensor,
                    layout: Optional[csr_bank.CSRLayout] = None
                    ) -> torch.Tensor:
     """Aggregator x scaler cross-product over edge messages: msg [E, F] ->
-    [N, S*A*F].  ``layout`` is the batch's CSR layout (built here when not
-    given); its ``deg`` is the scalers' degree."""
-    if layout is None:
-        layout = csr_bank.layout_from_graph(graph)
-    h = node_bank(graph, msg, aggregators, layout, self_msg)
-    return torch.cat([SCALERS[s](h, layout.deg, avg_d) for s in scalers],
-                     dim=-1)
+    [N, S*A*F].  On a batch with the ELL table every aggregator goes through
+    ``ops/ell.py``; otherwise ``layout`` is the batch's CSR layout (built
+    here when not given and the batch has ``edge_ptr``)."""
+    if graph.nbr_edge_ids is not None:
+        out_deg = (graph.out_degrees(msg.dtype)
+                   if 'normalised_mean' in aggregators else None)
+        ctx = EllCtx.create(msg, graph.nbr_edge_ids, graph.nbr_mask,
+                            self_msg=self_msg, senders=graph.senders,
+                            out_deg=out_deg)
+        h = torch.cat([ELL_AGGREGATORS[a](ctx) for a in aggregators], dim=-1)
+        deg = ctx.raw_cnt[:, 0]
+    else:
+        if layout is None:
+            layout = bank_layout(graph)
+        h = node_bank(graph, msg, aggregators, layout, self_msg)
+        deg = (layout.deg if layout is not None
+               else graph.in_degrees(msg.dtype))
+    return torch.cat([SCALERS[s](h, deg, avg_d) for s in scalers], dim=-1)
 
 
 def check_bank(aggregators: Sequence[str], scalers: Sequence[str]) -> None:
@@ -233,11 +266,11 @@ class PNALayerSparse(nn.Module):
     def forward(self, graph: Graph, h: torch.Tensor,
                 e: Optional[torch.Tensor] = None,
                 layout: Optional[csr_bank.CSRLayout] = None) -> torch.Tensor:
-        """h [N, in_dim], e [E, edge_dim] -> [N, out_dim]; ``layout`` is the
-        batch's CSR layout, shared by every tower (built here when not
+        """h [N, in_dim], e [E, edge_dim] -> [N, out_dim]; ``layout`` is
+        ``bank_layout(graph)``, shared by every tower (built here when not
         given)."""
         if layout is None:
-            layout = csr_bank.layout_from_graph(graph)
+            layout = bank_layout(graph)
         w = self.input_tower
         outs = [getattr(self, f'tower_{t}')(
             graph, h[:, t * w:(t + 1) * w] if self.divide_input else h, e,

@@ -29,10 +29,14 @@ of the whole epoch with its evaluation (``epoch_s``), of its training pass
 waiting for each step's loss (``sync_s``), and the pass's number of steps
 (``train_steps``).
 
-``bucket_by_degree`` (the JAX default) picks the degree-bucketed layout,
-whose speed was measured on a TPU; the port has no bucketed layout and its
-layout choice waits for measurements on the H100 (ROADMAP Queue 1 item 12),
-so the field defaults to False and True raises ``NotImplementedError``.
+``bucket_by_degree=True`` collates every batch, evaluation included, in the
+degree-bucketed layout at capacities ``fit`` derives once over all three
+splits (``derive_bucket_caps``), so all batches share one shape; the net
+then needs a backend that runs on that layout (``kernel='auto'``,
+``'bucketed'`` or ``'generic'``: the CSR backends raise without
+``edge_ptr``).  The JAX package defaults to it from measurements on a TPU;
+the port defaults to False, the CSR batches its CLIs train on, until the
+layouts are compared on the H100 (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
-from pna_tpu_torch.data.molecules import batch_iterator
+from pna_tpu_torch.data.molecules import batch_iterator, derive_bucket_caps
 from pna_tpu_torch.device import DeviceLike, resolve_device
 from pna_tpu_torch.train import metrics as M
 from pna_tpu_torch.utils.checkpoint import CheckpointManager, save_checkpoint
@@ -72,7 +76,7 @@ class PipelineConfig:
     # resume=True restores 'latest' and continues the run
     checkpoint_dir: Optional[str] = None
     resume: bool = False
-    # the degree-bucketed layout is not ported (see the module docstring)
+    # degree-bucketed batches at dataset-wide capacities (module docstring)
     bucket_by_degree: bool = False
 
 
@@ -96,7 +100,8 @@ def _lr(optimizer: torch.optim.Optimizer) -> float:
 
 
 class RealworldTrainer:
-    """Trainer of the PNANet* models on batched CSR graphs.
+    """Trainer of the PNANet* models on batched graphs (CSR, or bucketed
+    under ``bucket_by_degree``).
 
     ``forward_args(graph)`` adapts the model's call to the benchmark:
     molecules pass (graph, atom types, bond types or None), superpixels
@@ -107,10 +112,6 @@ class RealworldTrainer:
                  cfg: PipelineConfig,
                  forward_args: Optional[Callable[[Any], tuple]] = None,
                  metric: Optional[str] = None, device: DeviceLike = None):
-        if cfg.bucket_by_degree:
-            raise NotImplementedError(
-                "bucket_by_degree: the degree-bucketed layout is not ported "
-                "yet: ROADMAP Queue 1 item 12")
         self.device = resolve_device(device)
         where = {p.device.type for p in model.parameters()}
         if where != {self.device.type}:
@@ -125,6 +126,8 @@ class RealworldTrainer:
         self.scheduler = make_scheduler(self.optimizer, cfg)
         # host seconds and steps of the last run_epoch
         self.last_pass: dict = {}
+        # bucket capacities of every batch (bucket_by_degree), set by fit
+        self.bucket_caps: Optional[dict] = None
 
     # -- epochs -----------------------------------------------------------
     def _epoch_metric(self, outs, labels, masks) -> float:
@@ -149,7 +152,8 @@ class RealworldTrainer:
         model.train(train)
         losses, outs, labels_all, masks = [], [], [], []
         t_start, collate_s, sync_s = time.perf_counter(), 0.0, 0.0
-        batches = batch_iterator(records, batch_size, seed, shuffle=train)
+        batches = batch_iterator(records, batch_size, seed, shuffle=train,
+                                 bucket_caps=self.bucket_caps)
         while True:
             t0 = time.perf_counter()
             item = next(batches, None)
@@ -210,6 +214,11 @@ class RealworldTrainer:
         test metric.  Returns (model, best, history)."""
         cfg = self.cfg
         epochs = epochs if epochs is not None else cfg.epochs
+        if cfg.bucket_by_degree and self.bucket_caps is None:
+            # over all splits, so evaluation batches share the one shape
+            self.bucket_caps = derive_bucket_caps(
+                list(dataset.train) + list(dataset.val) + list(dataset.test),
+                cfg.batch_size)
         print("MODEL/Total parameters:", param_count(self.model))
         logger = None
         if cfg.metrics_path or cfg.tensorboard_dir:

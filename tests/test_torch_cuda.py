@@ -815,3 +815,168 @@ def test_cuda_sparse_gcn_gat_gin_match_cpu(layer):
     scale = max(float(g.abs().max()) for g in cpu.values())
     for k, g in cpu.items():
         assert float((card[k] - g).abs().max()) <= 1e-6 * scale, k
+
+
+# ---------------------------------------------------------------------------
+# the layouts: bucketed, ELL and generic backends, remat (no JAX here)
+# ---------------------------------------------------------------------------
+
+LAYOUT_NET = dict(num_atom_type=28, num_bond_type=4, hidden_dim=16,
+                  out_dim=16, n_layers=2, towers=2, edge_feat=True,
+                  edge_dim=4, aggregators=('mean', 'max', 'min', 'std'),
+                  scalers=('identity', 'amplification', 'attenuation'))
+
+
+def _zinc_net(ds, device, **kw):
+    from pna_tpu_torch.nn.nets import PNANetMolecules
+    return PNANetMolecules(**dict(LAYOUT_NET, **kw), avg_d=ds.avg_d(),
+                           device=device, seed=3)
+
+
+def _hold_grads(card, cpu, tol, norm=False):
+    """Every gradient of ``card`` within ``tol`` of ``cpu``'s: of its norm
+    (bfloat16), or of its largest entry, at least 1e-3 of the model's
+    largest (chip_smoke.py's ZERO_GRAD_FLOOR)."""
+    floor = 1e-3 * max(float(p.grad.abs().max()) for p in cpu.parameters())
+    for (k, a), b in zip(card.named_parameters(), cpu.parameters()):
+        a, b = a.grad.cpu(), b.grad.cpu()
+        assert torch.isfinite(a).all(), k
+        if norm:
+            err = float((a - b).norm() / max(float(b.norm()), 1e-30))
+        else:
+            err = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   floor)
+        assert err <= tol, (k, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,layout,bf16", [
+    ('auto', 'bucketed', False), ('auto', 'bucketed', True),
+    ('ell', 'ell', False), ('generic', 'csr', False)])
+def test_cuda_layout_step_matches_cpu(kernel, layout, bf16):
+    """One training step of a small ZINC net on the card against the same
+    weights on the CPU, per backend: loss rtol 1e-4 (bfloat16 1e-2), every
+    gradient within 2e-3 of its scale (bfloat16 5e-2 of its norm); the
+    bucketed and ELL steps launch none of K1 to K4, the generic step (with
+    identity, on a CSR batch) one K1 and one K2 per layer through the
+    sparse bank."""
+    from pna_tpu_torch.data.molecules import ZincDataset, collate_records
+    from pna_tpu_torch.train.step import loss_and_grads
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = ZincDataset.synthetic(n_train=24, n_val=1, n_test=1, seed=2)
+    kw = {'bucketed': dict(bucket_by_degree=True),
+          'ell': dict(with_ell=True), 'csr': {}}[layout]
+    graph, labels = collate_records(ds.train, **kw)
+    net_kw = dict(kernel=kernel,
+                  compute_dtype=torch.bfloat16 if bf16 else None)
+    if kernel == 'generic':
+        net_kw['aggregators'] = LAYOUT_NET['aggregators'] + ('identity',)
+    cpu = _zinc_net(ds, 'cpu', **net_kw)
+    card = _zinc_net(ds, 'cuda', **net_kw)
+    card.load_state_dict(cpu.state_dict())
+    fk.reset_launch_counts()
+    l_card = float(loss_and_grads(card, graph.to('cuda'), labels.cuda()))
+    torch.cuda.synchronize()
+    counts = fk.launch_counts()
+    l_cpu = float(loss_and_grads(cpu, graph, labels))
+    assert abs(l_card - l_cpu) <= (1e-2 if bf16 else 1e-4) * abs(l_cpu)
+    _hold_grads(card, cpu, 5e-2 if bf16 else 2e-3, norm=bf16)
+    n = LAYOUT_NET['n_layers'] if kernel == 'generic' else 0
+    assert counts == {'csr_moment_sketch': n, 'csr_dmsg': n,
+                      'csr_pretrans_sketch': 0, 'csr_pretrans_dmsg': 0}
+
+
+@pytest.mark.cuda
+def test_cuda_remat_step_matches_plain_step():
+    """remat=True against remat=False on the card, 'csr', dropout 0.1, the
+    same weights and generator seed: loss rtol 1e-5, gradients within 2e-3
+    of their scale, batch-norm statistics rtol 1e-6; K1 launches twice per
+    layer (the recompute), K2 once."""
+    from pna_tpu_torch.data.molecules import ZincDataset, collate_records
+    from pna_tpu_torch.train.step import loss_and_grads
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = ZincDataset.synthetic(n_train=24, n_val=1, n_test=1, seed=2)
+    g, y = collate_records(ds.train)
+    g, y = g.to('cuda'), y.cuda()
+    nets, losses, counts = [], [], []
+    state = _zinc_net(ds, 'cpu').state_dict()
+    for remat in (False, True):
+        m = _zinc_net(ds, 'cuda', dropout=0.1, remat=remat)
+        m.load_state_dict(state)
+        fk.reset_launch_counts()
+        losses.append(float(loss_and_grads(m, g, y)))
+        torch.cuda.synchronize()
+        counts.append(fk.launch_counts())
+        nets.append(m)
+    L = LAYOUT_NET['n_layers']
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+    _hold_grads(nets[1], nets[0], 2e-3)
+    for (k, a), b in zip(nets[1].state_dict().items(),
+                         nets[0].state_dict().values()):
+        if 'running' in k:
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    assert counts[0]['csr_moment_sketch'] == counts[0]['csr_dmsg'] == L
+    assert counts[1]['csr_moment_sketch'] == 2 * L
+    assert counts[1]['csr_dmsg'] == L
+
+
+@pytest.mark.cuda
+def test_cuda_bucketed_trainer_launches_no_kernel():
+    """PipelineConfig(bucket_by_degree=True) with kernel='auto' on the card:
+    two epochs, every batch bucketed at the caps fit derives, finite falling
+    loss, none of K1 to K4 launched."""
+    from pna_tpu_torch.data.molecules import ZincDataset
+    from pna_tpu_torch.nn.nets import PNANetMolecules
+    from pna_tpu_torch.train.realworld import PipelineConfig, RealworldTrainer
+    _need_card()
+    ds = ZincDataset.synthetic(n_train=48, n_val=16, n_test=16, seed=2)
+    trainer = RealworldTrainer(
+        _zinc_net(ds, 'cuda', kernel='auto'), PNANetMolecules.loss,
+        PipelineConfig(bucket_by_degree=True, epochs=2, batch_size=16,
+                       init_lr=5e-3),
+        forward_args=lambda g: (g, g.node_feats.squeeze(-1),
+                                g.edge_feats.squeeze(-1)), device='cuda')
+    fk.reset_launch_counts()
+    _, _, hist = trainer.fit(ds, log_fn=lambda s: None)
+    torch.cuda.synchronize()
+    assert set(fk.launch_counts().values()) == {0}
+    assert trainer.bucket_caps is not None
+    losses = [h['train_loss'] for h in hist]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+def test_cuda_hiv_ell_step_matches_cpu():
+    """PNANetHIV on an ELL batch (the bank's ELL path) on the card against
+    the CPU and against the CSR batch on the card; no K1 to K4 launch."""
+    from pna_tpu_torch.data.hiv import HIVDataset
+    from pna_tpu_torch.data.molecules import collate_records
+    from pna_tpu_torch.nn.nets import PNANetHIV
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = HIVDataset.synthetic(n_train=24, n_val=1, n_test=1, seed=2)
+    ell, y = collate_records(ds.train, with_ell=True)
+    csr, _ = collate_records(ds.train)
+    kw = dict(hidden_dim=16, out_dim=16, n_layers=2,
+              aggregators=LAYOUT_NET['aggregators'],
+              scalers=LAYOUT_NET['scalers'], avg_d=ds.avg_d(), seed=3)
+    state = PNANetHIV(**kw, device='cpu').state_dict()
+    models, losses = {}, {}
+    for where, graph, dev in (('cpu', ell, 'cpu'), ('card', ell, 'cuda'),
+                              ('csr', csr, 'cuda')):
+        m = PNANetHIV(**kw, device=dev)
+        m.load_state_dict(state)
+        m.train()
+        g = graph.to(dev)
+        fk.reset_launch_counts()
+        loss = PNANetHIV.loss(m(g, g.node_feats), y.to(dev), g.graph_mask)
+        loss.backward()
+        if where == 'card':
+            torch.cuda.synchronize()
+            assert set(fk.launch_counts().values()) == {0}
+        models[where], losses[where] = m, float(loss.detach())
+    assert abs(losses['card'] - losses['cpu']) <= 1e-4 * abs(losses['cpu'])
+    assert abs(losses['card'] - losses['csr']) <= 1e-4 * abs(losses['csr'])
+    _hold_grads(models['card'], models['cpu'], 2e-3)

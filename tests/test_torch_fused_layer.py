@@ -179,16 +179,18 @@ def test_bf16_layer_matches_jax_bf16(kernel):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(kernel='auto'), NotImplementedError),
-    (dict(kernel='bucketed'), NotImplementedError),
-    (dict(kernel='ell'), NotImplementedError),
-    (dict(kernel='generic'), NotImplementedError),
+    (dict(kernel='auto', tp_axis='model'), NotImplementedError),
+    (dict(kernel='bucketed', tp_axis='model'), NotImplementedError),
+    (dict(kernel='ell', tp_axis='model'), NotImplementedError),
+    (dict(kernel='generic', tp_axis='model'), NotImplementedError),
     (dict(kernel='pallas_fused'), ValueError),
     (dict(kernel='pallas'), ValueError),
     (dict(compute_dtype=torch.float16), NotImplementedError),
     (dict(tp_axis='model'), NotImplementedError),
 ])
 def test_unported_options_raise(kw, err):
+    """The options still to port raise, on every backend; the JAX names of
+    the kernel backends raise naming the port's."""
     want = {'pallas': "'csr'", 'pallas_fused': "'csr_fused'"}
     with pytest.raises(err, match=want.get(kw.get('kernel'), "ROADMAP")):
         PNALayerFused(D, D, AGGS, SCALERS, AVG_D, device='cpu', **kw)

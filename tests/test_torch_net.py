@@ -136,9 +136,12 @@ def test_gru_and_two_layer_mlps_net_matches_jax():
                posttrans_layers=2)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(kernel='ell'), "item 12"),
-                                     (dict(remat=True), "item 6")])
+@pytest.mark.parametrize("kw,item", [
+    (dict(kernel='ell', compute_dtype=torch.float16), "item 7"),
+    (dict(remat=True, compute_dtype=torch.float16), "item 7")])
 def test_unported_net_options_raise(kw, item):
+    """Every backend and remat are ported; a float16 compute dtype is not,
+    with any of them."""
     with pytest.raises(NotImplementedError, match=item):
         PNANetMolecules(**_configs(True), avg_d={'log': 1.0}, device='cpu',
                         **kw)
