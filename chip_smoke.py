@@ -100,7 +100,33 @@ Phases (any failure raises, so the script exits non-zero):
     with dropout 0.1 and ``remat=True`` against the same step without
     remat (loss rtol 1e-5, gradients GRAD_TOL, batch-norm statistics rtol
     1e-6, K1 twice per layer and K2 once, the peak memory of both, and both
-    steps timed interleaved).
+    steps timed interleaved);
+13. large graph (the distributed stack on the card, over a 1-rank NCCL
+    group in this process): the host C++ library (``pna_tpu_torch/native``)
+    must have built; ``halo_exchange`` over the NCCL group equals the local
+    gather (in flight too, and its gradient); the dryrun's hub-skewed
+    node-level configuration (``hub_problem``: a node receiving a fifth of
+    the edges, edge features) at one part, its step on the card over the
+    NCCL mesh against the same weights on the CPU without groups on
+    ``csr`` and ``csr_fused`` (phase 4's tolerances; one K1 with ties and
+    one K2 per layer on ``csr``, one K3 and one K4 on ``csr_fused``, none
+    of the others), and ``dryrun_multichip(1)``; K1-K4 against their plain
+    versions at the path's shapes (the CLI's graph, 100,000 nodes and
+    1,000,000 power-law edges, as one sorted part; F = 64; K3's u from the
+    part's ghost table; Fe = 4) and on the same graph with a fifth of the
+    edges sent to node 0 (in-degree 200,007), the sums held against float64
+    there, timed beside their byte bounds; ``cli.train_largegraph.main`` at
+    its defaults with ``--d_graph 1`` for 30 steps (``--eval_every 10``) on
+    ``csr``, ``csr_fused`` (``--edge_feat_dim 4``), ``bucketed`` and
+    ``generic``: exact launches (4 K1 + 4 K2 per train step and 4 K1 per
+    evaluation on ``csr``, K3/K4 alike on ``csr_fused``, none on the
+    others), finite val losses, a falling train loss on the CSR backends,
+    train steps/s; ``--kernel auto`` prints its choice; 20 steps and a
+    resume to 30 against the 30 straight ``csr`` steps (RESUME_RTOL); and
+    the trainer's step on ``csr``, ``csr_fused``, ``bucketed`` and
+    ``generic`` at 1,000,000 edges and on ``csr`` and ``bucketed`` at
+    100,000 (median step, peak memory per padded-edge-row byte, a profile):
+    the readings of ``ops/layout.py``'s constants.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -119,8 +145,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from pna_tpu_torch import entry
+from pna_tpu_torch import dryrun_multichip, entry, hub_problem, native
 from pna_tpu_torch.cli import common as mt_common
 from pna_tpu_torch.cli import gat as mt_gat
 from pna_tpu_torch.cli import gcn as mt_gcn
@@ -129,6 +156,7 @@ from pna_tpu_torch.cli import gin as mt_gin
 from pna_tpu_torch.cli import (main_HIV, main_molecules, main_superpixels,
                                pyg_example)
 from pna_tpu_torch.cli import mpnn as mt_mpnn
+from pna_tpu_torch.cli import train_largegraph as train_largegraph_cli
 from pna_tpu_torch.cli import pna as mt_pna
 from pna_tpu_torch.data.multitask import load_multitask_dataset
 from pna_tpu_torch.data.hiv import HIVDataset
@@ -142,11 +170,21 @@ from pna_tpu_torch.ops import build, csr_bank, csr_kernels
 from pna_tpu_torch.ops import csr_fused_kernels as fk
 from pna_tpu_torch.ops.csr_bank import csr_layout, layout_from_graph
 from pna_tpu_torch.ops.csr_kernels import SEG, CSRSegments, csr_segments
+from pna_tpu_torch.parallel import multihost
+from pna_tpu_torch.parallel.distributed_net import (DistributedPNANet,
+                                                    mesh_groups)
+from pna_tpu_torch.parallel.partition import (halo_exchange,
+                                              partition_edges,
+                                              powerlaw_graph,
+                                              sort_partition_edges)
 from pna_tpu_torch.ops.timing import (card_line, flush_buffer, hub_case,
                                       make_messages, time_cuda)
 from pna_tpu_torch.train.engine import MultitaskTrainer
+from pna_tpu_torch.train.largegraph import (LargeGraphConfig, build_problem,
+                                            make_node_train_step)
 from pna_tpu_torch.train.realworld import PipelineConfig, RealworldTrainer
 from pna_tpu_torch.train.step import loss_and_grads, make_optimizer, train_step
+from pna_tpu_torch.utils import profiling
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and float32
 # operations/s outside the tensor cores
@@ -267,10 +305,15 @@ def nbytes(x):
     return 0 if x is None else x.numel() * x.element_size()
 
 
-def check_sketch(kern, plain, msg, ptr, what="K1"):
+def check_sketch(kern, plain, msg, ptr, what="K1", exact=False):
     """Max abs error over the outputs of a moment sketch of ``msg``; raises
-    outside the tolerance."""
+    outside the tolerance.  ``exact``: the sums are held against the plain
+    version in float64 (a node of 200,000 edges: the float32 plain
+    version's own atomic sums are off by more than SUM_RTOL there)."""
     scale_s = csr_kernels.csr_moment_sketch_plain(msg.abs(), ptr)[0]
+    if exact:
+        ref = csr_kernels.csr_moment_sketch_plain(msg.double(), ptr)[:2]
+        plain = tuple(r.float() for r in ref) + tuple(plain[2:])
     err = 0.0
     for i, (k, p) in enumerate(zip(kern, plain)):
         d = (k - p).abs()
@@ -301,16 +344,16 @@ def sketch_messages(ptr, n_rows, f, tie_node, dev, gen):
     return msg.to(dev)
 
 
-def check_csr(msg, ptr, segs, gen, what):
+def check_csr(msg, ptr, segs, gen, what, exact=False):
     """K1 with and without ties and K2 (every row) against their plain
-    versions on one set of inputs; returns (K1 error, K2 error, K2's
-    arguments, K1's six outputs)."""
+    versions on one set of inputs (``exact``: see ``check_sketch``);
+    returns (K1 error, K2 error, K2's arguments, K1's six outputs)."""
     plain6 = csr_kernels.csr_moment_sketch_plain(msg, ptr, True)
     kern6 = csr_kernels.csr_moment_sketch(msg, ptr, True, segments=segs)
     kern4 = csr_kernels.csr_moment_sketch(msg, ptr, False, segments=segs)
     torch.cuda.synchronize()
-    e1 = max(check_sketch(kern6, plain6, msg, ptr),
-             check_sketch(kern4, plain6[:4], msg, ptr))
+    e1 = max(check_sketch(kern6, plain6, msg, ptr, exact=exact),
+             check_sketch(kern4, plain6[:4], msg, ptr, exact=exact))
     n, f = ptr.numel() - 1, msg.shape[1]
     fields = [torch.randn(n, f, generator=gen).to(msg.device)
               for _ in range(4)]
@@ -353,7 +396,7 @@ def segment_reduce_ms(msg, ptr, flush):
     return time_cuda(run, flush)
 
 
-def csr_case(name, ptr, n_rows, segs, f, dev, gen, flush):
+def csr_case(name, ptr, n_rows, segs, f, dev, gen, flush, exact=False):
     """K1 (with and without ties) and K2 on random messages [n_rows, f]
     over ``ptr`` (``segs``: its segment table): checked against their plain
     versions, then timed beside their byte bounds.  Returns (times, bounds
@@ -362,7 +405,7 @@ def csr_case(name, ptr, n_rows, segs, f, dev, gen, flush):
     n = ptr.numel() - 1
     msg = make_messages(n_rows, f, dev, gen)
     rows = int(ptr[-1] - ptr[0])
-    e1, e2, args, kern6 = check_csr(msg, ptr, segs, gen, name)
+    e1, e2, args, kern6 = check_csr(msg, ptr, segs, gen, name, exact)
     t = {
         "k1": time_cuda(lambda: csr_kernels.csr_moment_sketch(
             msg, ptr, True, segments=segs), flush),
@@ -501,17 +544,19 @@ def pretrans_bounds(u, v, snd, ptr, ef, ke, with_ties):
     return k3, k4
 
 
-def check_pretrans(u, v, snd, ptr, ef, ke, segs, gen):
+def check_pretrans(u, v, snd, ptr, ef, ke, segs, gen, exact=False):
     """K3 with and without ties and K4 against their plain versions on one
-    set of inputs (``segs``: the segment table of ``ptr``); returns (K3
-    error, K4 error, K4 arguments, K3's six outputs)."""
+    set of inputs (``segs``: the segment table of ``ptr``; ``exact``: sums
+    and K4's d_v against float64 sums of the plain messages and d_msg, see
+    ``check_sketch``); returns (K3 error, K4 error, K4 arguments, K3's six
+    outputs)."""
     msg = fk.pretrans_messages_plain(u, v, snd, ptr, ef, ke)
     plain6 = fk.csr_pretrans_sketch_plain(u, v, snd, ptr, ef, ke, True)
     kern6 = fk.csr_pretrans_sketch(u, v, snd, ptr, ef, ke, True, segs)
     kern4 = fk.csr_pretrans_sketch(u, v, snd, ptr, ef, ke, False, segs)
     torch.cuda.synchronize()
-    e3 = max(check_sketch(kern6, plain6, msg, ptr, "K3"),
-             check_sketch(kern4, plain6[:4], msg, ptr, "K3"))
+    e3 = max(check_sketch(kern6, plain6, msg, ptr, "K3", exact),
+             check_sketch(kern4, plain6[:4], msg, ptr, "K3", exact))
     if float(kern6[4].max()) < 2:
         raise AssertionError("K3 case has no max tie")
     n, f = ptr.numel() - 1, u.shape[1]
@@ -522,6 +567,9 @@ def check_pretrans(u, v, snd, ptr, ef, ke, segs, gen):
     args = (u, v, snd, ptr, *fields, kern6[2], kern6[3], ef, ke)
     d_k, dv_k = fk.csr_pretrans_dmsg(*args, segs)
     d_p, dv_p = fk.csr_pretrans_dmsg_plain(*args)
+    if exact:
+        dv_p = csr_kernels.csr_moment_sketch_plain(d_p.double(),
+                                                   ptr)[0].float()
     torch.cuda.synchronize()
     scale = csr_kernels.csr_moment_sketch_plain(d_p.abs(), ptr)[0]
     # every row: K4 writes the rows outside every range as 0, as the plain
@@ -850,29 +898,15 @@ def profile_steps(step_fn, step_ms, steps=3):
     (torch.profiler); returns the device kernel ms and kernels per step and
     the busy share of ``step_ms``, or None when no device time was
     recorded."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiling.trace() as prof:
         for _ in range(steps):
             step_fn()
         torch.cuda.synchronize()
-    rows, host = [], []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        # kernels only: a record_function range shows up on the device too
-        if (str(ev.device_type).endswith("CUDA") and us > 0
-                and not getattr(ev, "is_user_annotation", False)):
-            rows.append((ev.key, us / steps / 1e3, ev.count // steps))
-        elif ev.self_cpu_time_total > 0:
-            host.append((ev.key, ev.self_cpu_time_total / steps / 1e3,
-                         ev.count // steps))
+    rows, host = profiling.op_times(prof, steps)
     total = sum(r[1] for r in rows)
     if total == 0:
         log("  profile: no device time recorded (not measured)")
         return None
-    rows.sort(key=lambda r: -r[1])
-    host.sort(key=lambda r: -r[1])
     log(f"  profile: device kernel time {total:.3f} ms per step; busy share "
         f"{total / step_ms:.3f} of the median step ({step_ms:.3f} ms); "
         f"{sum(r[2] for r in rows)} device kernels per step")
@@ -1865,6 +1899,376 @@ def layouts_phase(ds, graph, labels, state, runs, csr_trainer, hiv, dev,
     return res
 
 
+# ---------------------------------------------------------------------------
+# large-graph phase: the distributed stack on one card, over a 1-rank NCCL
+# group
+
+# the large-graph CLI at its defaults (100,000 nodes, 1,000,000 power-law
+# edges, feat_dim 8, hidden 64, out 64, 4 layers, 4 towers, mean/max/min/std
+# x identity/amplification/attenuation, batch norm), the whole graph on the
+# one card
+LG_ARGV = ['--d_graph', '1']
+LG_LAYERS, LG_HIDDEN = 4, 64
+LG_STEPS, LG_EVAL = 30, 10
+LG_RESUME_AT = 20
+# the trainer's step for the layout constants (ops/layout.py): warm-up and
+# timed steps at each edge count
+LG_WARM, LG_TIMED = 3, 10
+LG_BENCH = (('csr', 1_000_000), ('bucketed', 1_000_000),
+            ('csr_fused', 1_000_000), ('generic', 1_000_000),
+            ('csr', 100_000), ('bucketed', 100_000))
+LG_FE = 4                    # --edge_feat_dim of the csr_fused runs
+
+
+def lg_exchange(dev):
+    """``halo_exchange`` over the 1-rank NCCL group equals the local gather,
+    waited for at once and in flight, and its backward equals the gather's."""
+    gen = torch.Generator().manual_seed(7)
+    nl, h, f = 4096, 512, LG_HIDDEN
+    x = torch.randn(nl, f, generator=gen).to(dev).requires_grad_(True)
+    idx = torch.randint(0, nl, (1, h), generator=gen,
+                        dtype=torch.int32).to(dev)
+    mask = (torch.rand(1, h, generator=gen) < 0.7).to(dev)
+    want = x[idx.reshape(-1).long()] * mask.reshape(-1, 1).float()
+    got = halo_exchange(x, idx, mask, dist.group.WORLD)
+    later = halo_exchange(x, idx, mask, dist.group.WORLD, wait=False).wait()
+    w = torch.randn(h, f, generator=gen).to(dev)
+    g_got, = torch.autograd.grad((got * w).sum(), x)
+    g_want, = torch.autograd.grad((want * w).sum(), x)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(later, want)):
+        raise AssertionError("the NCCL halo exchange differs from the "
+                             "local gather")
+    if not torch.allclose(g_got, g_want, rtol=1e-6, atol=1e-6):
+        raise AssertionError("the halo exchange's gradient differs")
+    log(f"largegraph: NCCL ({dist.get_backend()}, world "
+        f"{dist.get_world_size()}) halo exchange of [{h}, {f}] equals the "
+        "local gather, in flight too; its gradient equals the gather's")
+
+
+LG_HUB_LR = 1e-2
+
+
+def hold_update(what, card, cpu, lr):
+    """After one SGD step of rate ``lr`` from the same weights: every
+    parameter within ``lr`` x GRAD_TOL of its gradient's scale (as
+    ``hold_step`` takes it) plus two float32 roundings of its largest
+    entry; returns the worst difference as a share of its bound."""
+    floor = ZERO_GRAD_FLOOR * max(float(b.grad.abs().max())
+                                  for b in cpu.parameters())
+    eps = torch.finfo(torch.float32).eps
+    worst = 0.0
+    for (k, a), b in zip(card.named_parameters(), cpu.parameters()):
+        scale = max(float(b.grad.abs().max()), floor)
+        bound = (lr * GRAD_TOL * scale
+                 + 2 * eps * float(b.detach().abs().max()))
+        d = float((a.detach().cpu() - b.detach()).abs().max())
+        if not d <= bound:
+            raise AssertionError(f"{what}: updated {k} differs by {d:.3g} "
+                                 f"(bound {bound:.3g})")
+        worst = max(worst, d / bound)
+    return worst
+
+
+def lg_hub_steps(dev):
+    """The dryrun's hub-skewed configuration (``hub_problem``: 2,000 nodes,
+    16,000 edges, node 0 the receiver of a fifth, edge features) at one
+    part: the trainer's own step (``make_node_train_step``: the loss's
+    all-reduce, the loss scale, the gradient all-reduce, the optimiser) on
+    the card over the NCCL mesh against the same step on the CPU without
+    groups, from the same weights, on csr and csr_fused; the loss, the
+    gradients and the updated weights, and the launches of one step.  SGD
+    (rate LG_HUB_LR): Adam's first update is the rate times the gradient's
+    sign, which a last-place difference of a gradient near zero flips."""
+    part, x, labels, efeats, net_kw = hub_problem(1)
+    mesh = multihost.hybrid_mesh({'data': 1}, {'graph': 1},
+                                 device_type='cuda')
+    _, graph_group, _ = mesh_groups(mesh)
+    out = {}
+    for kernel in ('csr', 'csr_fused'):
+        card = DistributedPNANet(kernel=kernel, graph_group=graph_group,
+                                 bn_group=dist.group.WORLD, device=dev,
+                                 seed=0, **net_kw)
+        cpu = DistributedPNANet(kernel=kernel, device='cpu', seed=0,
+                                **net_kw)
+        losses, counts = {}, None
+        for where, net, d, m in (('card', card, dev, mesh),
+                                 ('cpu', cpu, 'cpu', None)):
+            opt = torch.optim.SGD(net.parameters(), lr=LG_HUB_LR)
+            step, _, _ = make_node_train_step(part, m, net, opt,
+                                              efeats=efeats)
+            xs, ys, ms = (torch.from_numpy(a[0]).to(d)
+                          for a in (x, labels, part.node_mask))
+            fk.reset_launch_counts()
+            losses[where] = step(xs, ys, ms)
+            if where == 'card':
+                counts = fk.launch_counts()
+        worst = hold_step(f"largegraph hub {kernel}", card, cpu, losses)
+        worst_w = hold_update(f"largegraph hub {kernel}", card, cpu,
+                              LG_HUB_LR)
+        want = {k: net_kw['n_layers'] if k in BACKEND_KERNELS[kernel] else 0
+                for k in SOURCES}
+        if counts != want:
+            raise AssertionError(f"hub {kernel}: one step launched {counts},"
+                                 f" expected {want}")
+        log(f"largegraph: the trainer's hub step on {kernel} (max in-degree "
+            f"{int(np.diff(part.edge_ptr[0]).max())}): card {losses['card']:.6f}"
+            f" vs CPU {losses['cpu']:.6f}, worst gradient error {worst:.3g} "
+            f"(tolerance {GRAD_TOL}), worst updated weight {worst_w:.3g} of "
+            f"its bound; launches per step {counts}")
+        out[kernel] = dict(loss=losses, worst_grad=worst,
+                           worst_update=worst_w, counts=counts)
+    losses = dryrun_multichip(1)
+    log(f"largegraph: dryrun_multichip(1) on the card: {losses}")
+    out['dryrun'] = losses
+    return out
+
+
+def lg_pretrans_inputs(ptr, n_u, n_rows, dev, gen):
+    """(u [n_u, F], v [N, F], ef [n_rows, LG_FE], ke [LG_FE, F]) with tie
+    material: u rows repeat in groups of four senders, ef is one of four
+    edge types."""
+    n, f = ptr.numel() - 1, LG_HIDDEN
+    u = torch.randn(n_u // 4 + 1, f, generator=gen)[torch.arange(n_u) // 4]
+    table = torch.randn(4, LG_FE, generator=gen)
+    bond = torch.randint(0, 4, (n_rows,), generator=gen)
+    return (u.to(dev), torch.randn(n, f, generator=gen).to(dev),
+            table[bond].to(dev), torch.randn(LG_FE, f, generator=gen).to(dev))
+
+
+def lg_kernel_cases(dev):
+    """K1-K4 against their plain versions at the large-graph path's shapes:
+    the CLI's graph (100,000 nodes, 1,000,000 power-law edges) as one sorted
+    part, messages of width 64, K3's u from the part's ghost table, and the
+    same graph with a fifth of the edges sent to node 0 (a hub of in-degree
+    200,000); timed beside their byte bounds."""
+    gen = torch.Generator().manual_seed(11)
+    flush = flush_buffer(dev)
+    cfg = LargeGraphConfig()
+    send, recv = powerlaw_graph(cfg.num_nodes, cfg.num_edges, seed=cfg.seed,
+                                exponent=cfg.exponent)
+    hub = recv.copy()
+    hub[:cfg.num_edges // 5] = 0
+    res = {k: {"err": 0.0} for k in SOURCES}
+    for name, r in (("largegraph", recv), ("largegraph_hub", hub)):
+        part = sort_partition_edges(partition_edges(send, r, cfg.num_nodes,
+                                                    1))
+        ptr = torch.from_numpy(part.edge_ptr[0]).to(dev)
+        rows = part.edges_per_part
+        segs = csr_segments(ptr)
+        t, e1, e2, _, _ = csr_case(name, ptr, rows, segs, LG_HIDDEN, dev,
+                                   gen, flush, exact=True)
+        del t["msg"]
+        snd = torch.from_numpy(part.senders_local[0]).to(dev)
+        n_u = part.nodes_per_part + part.num_parts * part.halo_size
+        u, v, ef, ke = lg_pretrans_inputs(ptr, n_u, rows, dev, gen)
+        e3, e4, args, _ = check_pretrans(u, v, snd, ptr, ef, ke, segs, gen,
+                                         exact=True)
+        k3 = time_cuda(lambda: fk.csr_pretrans_sketch(
+            u, v, snd, ptr, ef, ke, True, segs), flush)
+        k3_plain = time_cuda(lambda: fk.csr_pretrans_sketch_plain(
+            u, v, snd, ptr, ef, ke, True), flush)
+        k4 = time_cuda(lambda: fk.csr_pretrans_dmsg(*args), flush)
+        k4_plain = time_cuda(lambda: fk.csr_pretrans_dmsg_plain(*args[:-1]),
+                             flush)
+        b3, b4 = pretrans_bounds(u, v, snd, ptr, ef, ke, True)
+        log(f"kernels[{name}] K3 ties {k3:.4f} ms (plain {k3_plain:.4f}, "
+            f"bound {b3[0]:.4f}; u {n_u} rows from the ghost table, v "
+            f"{ptr.numel() - 1}), K4 {k4:.4f} ms (plain {k4_plain:.4f}, "
+            f"bound {b4[0]:.4f}); max err K3 {e3:.3g} K4 {e4:.3g}; "
+            f"{segs.n_split} split nodes, max in-degree "
+            f"{int(np.diff(part.edge_ptr[0]).max())}")
+        hub_case_ = name.endswith("hub")
+        pre = "hub_" if hub_case_ else ""
+        for k, (ms, plain, bound, err) in {
+                "csr_moment_sketch": (t["k1"], t["k1_plain"], t["k1_bound"],
+                                      e1),
+                "csr_dmsg": (t["k2"], t["k2_plain"], t["k2_bound"], e2),
+                "csr_pretrans_sketch": (k3, k3_plain, b3, e3),
+                "csr_pretrans_dmsg": (k4, k4_plain, b4, e4)}.items():
+            res[k]["err"] = max(res[k]["err"], err)
+            res[k].update({pre + "ms": ms, pre + "plain_ms": plain,
+                           pre + "bound_ms": bound[0]})
+        if not hub_case_:
+            res["csr_moment_sketch"]["ms_no_ties"] = t["k1_no_ties"]
+        res["shape"] = dict(nodes=cfg.num_nodes, rows=rows, f=LG_HIDDEN,
+                            u_rows=n_u, fe=LG_FE)
+    return res
+
+
+def lg_expected(kernel, steps, evals):
+    """Launches of a large-graph run: K1 (or K3) per layer per train step
+    and per evaluation, K2 (or K4) per layer per train step, none other."""
+    fwd, bwd = BACKEND_KERNELS.get(kernel, (None, None))
+    return {k: (LG_LAYERS * (steps + evals) if k == fwd
+                else LG_LAYERS * steps if k == bwd else 0) for k in SOURCES}
+
+
+def lg_cli(kernel, steps, evals, extra=()):
+    """``cli.train_largegraph.main`` at its defaults with ``--d_graph 1``;
+    returns its history, launches, the printed lines and the wall time."""
+    argv = LG_ARGV + ['--kernel', kernel, '--steps', str(steps),
+                      '--eval_every', str(LG_EVAL)] + list(extra)
+    fk.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        _, hist = train_largegraph_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fk.launch_counts()
+    lines = buf.getvalue().strip().splitlines()
+    losses = [h['train_loss'] for h in hist]
+    vals = [h['val_loss'] for h in hist if 'val_loss' in h]
+    if len(vals) != evals or not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"largegraph {kernel}: val losses {vals}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"largegraph {kernel}: train losses {losses}")
+    return hist, counts, lines, wall
+
+
+def lg_steps_per_s(hist):
+    """Train steps per second of every step but the first, from the steps'
+    own times (the trainer's ``StepTimer``; evaluations are outside
+    them)."""
+    return (len(hist) - 1) / sum(h['step_s'] for h in hist[1:])
+
+
+def lg_bench(kernel, edges, dev):
+    """The trainer's step on one backend at d_graph 1 (the CLI's graph with
+    ``edges`` edges): median step ms of LG_TIMED steps after LG_WARM, peak
+    device memory, bytes per padded-edge-row byte, and a profile."""
+    cfg = LargeGraphConfig(num_edges=edges, d_graph=1, kernel=kernel,
+                           edge_feat_dim=LG_FE if kernel == 'csr_fused'
+                           else 0)
+    mesh = multihost.hybrid_mesh({'data': 1}, {'graph': 1},
+                                 device_type='cuda')
+    _, graph_group, _ = mesh_groups(mesh)
+    part, x, y, tmask, _, efeats, avg_d, k = build_problem(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    net = DistributedPNANet(cfg.feat_dim, hidden_dim=cfg.hidden_dim,
+                            out_dim=cfg.out_dim, n_layers=cfg.n_layers,
+                            towers=cfg.towers, avg_d=avg_d, kernel=k,
+                            edge_features=efeats is not None,
+                            edge_dim=cfg.edge_feat_dim, node_level=True,
+                            graph_group=graph_group,
+                            bn_group=dist.group.WORLD, device=dev, seed=0)
+    opt = torch.optim.Adam(net.parameters(), lr=cfg.lr)
+    step, _, _ = make_node_train_step(part, mesh, net, opt, efeats=efeats)
+    args = [torch.from_numpy(a[0]).to(dev) for a in (x, y, tmask)]
+    for _ in range(LG_WARM):
+        step(*args)
+    times = []
+    for _ in range(LG_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*args)              # returns a float: the loss read syncs
+        times.append(time.perf_counter() - t0)
+    step_ms = statistics.median(times) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    reserved = torch.cuda.max_memory_reserved()
+    row = part.edges_per_part * cfg.hidden_dim * 4
+    prof = profile_steps(lambda: step(*args), step_ms)
+    r = dict(kernel=k, edges=edges, padded_edges=part.edges_per_part,
+             step_ms=step_ms, steps_per_s=1e3 / step_ms,
+             edges_per_s=edges * cfg.n_layers / (step_ms / 1e3),
+             peak_mib=peak / 2 ** 20, bytes_per_row_byte=peak / row,
+             reserved_mib=reserved / 2 ** 20,
+             allocated_share=torch.cuda.max_memory_allocated() / reserved,
+             device_ms=prof and prof['device_ms'],
+             busy=prof and prof['busy'])
+    log(f"largegraph bench[{k}, {edges} edges]: median step {step_ms:.3f} "
+        f"ms ({r['steps_per_s']:.2f} steps/s, {r['edges_per_s']:.4g} "
+        f"edges/s), device {r['device_ms']} ms, busy {r['busy']}, peak "
+        f"{r['peak_mib']:.1f} MiB over the {part.edges_per_part} padded "
+        f"edge rows: {r['bytes_per_row_byte']:.2f} bytes per row byte; the "
+        f"allocator reserved {r['reserved_mib']:.1f} MiB (peak allocated "
+        f"{r['allocated_share']:.3f} of it) of the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 20:.0f}")
+    return r
+
+
+def largegraph_phase(dev, card):
+    """The distributed stack on one card over a 1-rank NCCL group: the
+    exchange, the dryrun's hub configuration card vs CPU, K1-K4 at the
+    path's shapes, the large-graph CLI at its defaults on every backend with
+    exact launches, a resume, and the readings of ops/layout.py's
+    constants."""
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native graph library did not build")
+    log(f"largegraph: native library {native.library_path()}")
+    multihost.initialize()
+    if dist.get_backend() != 'nccl':
+        raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+    res = {}
+    lg_exchange(dev)
+    res['hub'] = lg_hub_steps(dev)
+    kernels = lg_kernel_cases(dev)
+    evals = LG_STEPS // LG_EVAL
+    runs = {}
+    for kernel, extra in (('csr', []), ('csr_fused',
+                                        ['--edge_feat_dim', str(LG_FE)]),
+                          ('bucketed', []), ('generic', [])):
+        hist, counts, lines, wall = lg_cli(kernel, LG_STEPS, evals, extra)
+        want = lg_expected(kernel, LG_STEPS, evals)
+        if counts != want:
+            raise AssertionError(f"largegraph CLI {kernel}: launches "
+                                 f"{counts}, expected {want}")
+        losses = [h['train_loss'] for h in hist]
+        if kernel in ('csr', 'csr_fused') and not losses[-1] < losses[0]:
+            raise AssertionError(f"largegraph CLI {kernel}: the train loss "
+                                 f"did not fall: {losses}")
+        sps = lg_steps_per_s(hist)
+        runs[kernel] = dict(
+            steps_per_s=sps,
+            edges_per_s=LargeGraphConfig.num_edges * LG_LAYERS * sps,
+            first_loss=losses[0], last_loss=losses[-1],
+            val_losses=[h['val_loss'] for h in hist if 'val_loss' in h],
+            counts=counts, wall_s=wall, history=hist)
+        log(f"largegraph CLI {kernel}: {LG_STEPS} steps in {wall:.1f} s "
+            f"(problem build included), {sps:.2f} train steps/s (steps "
+            f"2..{LG_STEPS}, evaluations excluded), train loss {losses[0]:.5f} -> {losses[-1]:.5f},"
+            f" val {runs[kernel]['val_losses']}; launches {counts} "
+            f"(expected {want}); {lines[-1]}")
+    hist, _, lines, _ = lg_cli('auto', 1, 1)
+    choice = [l for l in lines if l.startswith('[choose_layout]')]
+    if not choice:
+        raise AssertionError("--kernel auto printed no choice")
+    log(f"largegraph CLI auto: {choice[0]}")
+    res['auto_choice'] = choice[0]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lg_cli('csr', LG_RESUME_AT, LG_RESUME_AT // LG_EVAL,
+               ['--ckpt_dir', tmp])
+        resumed, _, _, _ = lg_cli('csr', LG_STEPS, LG_STEPS // LG_EVAL
+                                  - LG_RESUME_AT // LG_EVAL,
+                                  ['--ckpt_dir', tmp, '--resume'])
+    straight = runs['csr']['history'][LG_RESUME_AT:]
+    if [h['step'] for h in resumed] != [h['step'] for h in straight]:
+        raise AssertionError("largegraph resume did not start at step "
+                             f"{LG_RESUME_AT + 1}")
+    worst = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(resumed,
+                                                             straight)
+                for k in ('train_loss', 'val_loss') if k in b)
+    if worst > RESUME_RTOL:
+        raise AssertionError(f"largegraph resume differs by {worst:.3g}")
+    log(f"largegraph: {LG_RESUME_AT} steps and a resume to {LG_STEPS} match "
+        f"{LG_STEPS} straight steps: worst relative difference {worst:.3g} "
+        f"(tolerance {RESUME_RTOL}) over the train and val losses")
+    res['resume_worst'] = worst
+    res['bench'] = [lg_bench(k, e, dev) for k, e in LG_BENCH]
+    for r in runs.values():
+        r.pop('history')
+    res['cli'] = runs
+    multihost.shutdown()
+    res['seconds'] = time.perf_counter() - t0
+    log(f"largegraph: phase took {res['seconds']:.1f} s on {card}")
+    return res, kernels
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1965,6 +2369,7 @@ def main():
     routing = routing_phase(batches['zinc'][2], dev)
     resume_worst = resume_phase(dev)
     multitask = multitask_phase(dev, card)
+    largegraph, lk = largegraph_phase(dev, card)
 
     kernels = []
     for name, (src, tpu) in SOURCES.items():
@@ -1980,6 +2385,12 @@ def main():
         row["pipeline_launches"] = {kind: pr["launches"][name]
                                     for kind, pr in pipeline.items()}
         row["pipeline_launches"]["multitask"] = multitask["launches"][name]
+        row["pipeline_launches"]["largegraph"] = largegraph["cli"][
+            backend]["counts"][name]
+        row["max_abs_err"] = max(row["max_abs_err"], lk[name]["err"])
+        row["largegraph_shapes"] = dict(
+            {key: val for key, val in lk[name].items() if key != "err"},
+            **lk["shape"])
         if name in pk:
             row["pipeline_shapes"] = pk[name]
         kernels.append(row)
@@ -1990,7 +2401,8 @@ def main():
     log(json.dumps({"kernels": kernels, "card": card, "pipeline": summary,
                     "resume_worst_rel_diff": resume_worst,
                     "routing": routing, "multitask": multitask,
-                    "layouts": layouts}, default=str))
+                    "layouts": layouts, "largegraph": largegraph},
+                   default=str))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

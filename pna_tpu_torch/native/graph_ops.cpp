@@ -1,0 +1,201 @@
+// Native graph-structure kernels for the host-side data path.
+//
+// The reference delegates its graph bookkeeping to DGL's C++ core
+// (dgl.batch, degree bucketing); here the device feeds on
+// static-shape layouts built host-side, and these loops are the only O(E)
+// host work: ELL (padded neighbor-list) construction, degree counting and
+// edge-partition index building.  Python fallbacks exist for all entry
+// points; this library keeps the 100M-edge benchmark's preprocessing off the
+// Python interpreter.
+//
+// Build: pna_tpu_torch/native/__init__.py compiles this with g++ -O3 -shared
+// into pna_tpu_torch/_build/.
+
+#include <cstdint>
+#include <cstring>
+#include <vector>
+#include <algorithm>
+
+extern "C" {
+
+// In-degree count over masked edges.  receivers[e] in [0, n_nodes).
+void degree_count(const int32_t* receivers, const uint8_t* edge_mask,
+                  int64_t n_edges, int64_t n_nodes, int32_t* out_deg) {
+    std::memset(out_deg, 0, sizeof(int32_t) * n_nodes);
+    for (int64_t e = 0; e < n_edges; ++e) {
+        if (edge_mask[e]) out_deg[receivers[e]]++;
+    }
+}
+
+// ELL construction: nbr[n * dmax + k] = edge id of node n's k-th in-edge.
+// Returns the max in-degree (caller must have dmax >= it, checked first via
+// degree_count).  mask uses uint8 0/1.
+void build_ell(const int32_t* receivers, const uint8_t* edge_mask,
+               int64_t n_edges, int64_t n_nodes, int64_t dmax,
+               int32_t* out_nbr, uint8_t* out_mask) {
+    std::memset(out_nbr, 0, sizeof(int32_t) * n_nodes * dmax);
+    std::memset(out_mask, 0, sizeof(uint8_t) * n_nodes * dmax);
+    std::vector<int64_t> fill(n_nodes, 0);
+    for (int64_t e = 0; e < n_edges; ++e) {
+        if (!edge_mask[e]) continue;
+        int64_t r = receivers[e];
+        int64_t k = fill[r]++;
+        out_nbr[r * dmax + k] = (int32_t)e;
+        out_mask[r * dmax + k] = 1;
+    }
+}
+
+// Stable counting-sort of edge ids by receiver; out_order is a permutation of
+// [0, n_edges) such that receivers[out_order] is ascending.
+void sort_edges_by_receiver(const int32_t* receivers, int64_t n_edges,
+                            int64_t n_nodes, int32_t* out_order) {
+    std::vector<int64_t> count(n_nodes + 1, 0);
+    for (int64_t e = 0; e < n_edges; ++e) count[receivers[e] + 1]++;
+    for (int64_t n = 0; n < n_nodes; ++n) count[n + 1] += count[n];
+    for (int64_t e = 0; e < n_edges; ++e) {
+        out_order[count[receivers[e]]++] = (int32_t)e;
+    }
+}
+
+// Counting-sort edge ids by the part owning their receiver; shared by the
+// partition passes so the sender-stamp dedup below is exact (each part's
+// edges are visited contiguously).
+static void group_edges_by_part(const int64_t* receivers, int64_t n_edges,
+                                int64_t nl, int64_t num_parts,
+                                std::vector<int64_t>& order,
+                                std::vector<int64_t>& part_start) {
+    part_start.assign(num_parts + 1, 0);
+    for (int64_t e = 0; e < n_edges; ++e) part_start[receivers[e] / nl + 1]++;
+    for (int64_t p = 0; p < num_parts; ++p) part_start[p + 1] += part_start[p];
+    order.resize(n_edges);
+    std::vector<int64_t> cur(part_start.begin(), part_start.end() - 1);
+    for (int64_t e = 0; e < n_edges; ++e) order[cur[receivers[e] / nl]++] = e;
+}
+
+// Partition bookkeeping for contiguous node-range partitions (nl nodes per
+// part): counts edges per part and, per (src_part, dst_part) pair, the number
+// of distinct remote sender nodes (halo size).  Outputs:
+//   edge_count[p], halo_count[q * P + p]
+// Exact: edges are grouped by destination part first, so the per-sender
+// stamp dedup cannot be fooled by interleaved destinations.
+void partition_stats(const int64_t* senders, const int64_t* receivers,
+                     int64_t n_edges, int64_t nl, int64_t num_parts,
+                     int64_t n_nodes,
+                     int64_t* edge_count, int64_t* halo_count) {
+    std::memset(halo_count, 0, sizeof(int64_t) * num_parts * num_parts);
+    std::vector<int64_t> order, part_start;
+    group_edges_by_part(receivers, n_edges, nl, num_parts, order, part_start);
+    for (int64_t p = 0; p < num_parts; ++p)
+        edge_count[p] = part_start[p + 1] - part_start[p];
+    std::vector<int32_t> stamp(n_nodes, -1);
+    for (int64_t p = 0; p < num_parts; ++p) {
+        for (int64_t i = part_start[p]; i < part_start[p + 1]; ++i) {
+            int64_t s = senders[order[i]];
+            int64_t q = s / nl;
+            if (q != p && stamp[s] != (int32_t)p) {
+                stamp[s] = (int32_t)p;
+                halo_count[q * num_parts + p]++;
+            }
+        }
+    }
+}
+
+// Full edge-partition index build (the O(E) host preprocessing of the
+// distributed path).  Caller sizes el/h from partition_stats.  Within each
+// part, edges whose sender is local come first (overlap-friendly order,
+// original order preserved within each group).  Ghost slots are assigned in
+// first-encounter order; send_idx[q * P + p] lists the q-local node ids to
+// ship to p, and a remote sender's local index is nl + q * h + slot.
+void build_partition_indices(
+    const int64_t* senders, const int64_t* receivers, int64_t n_edges,
+    int64_t nl, int64_t num_parts, int64_t n_nodes, int64_t el, int64_t h,
+    int32_t* senders_local,    // [P, el]
+    int32_t* receivers_local,  // [P, el]
+    uint8_t* edge_mask,        // [P, el]
+    int32_t* send_idx,         // [P, P, h]
+    uint8_t* send_mask) {      // [P, P, h]
+    std::memset(senders_local, 0, sizeof(int32_t) * num_parts * el);
+    std::memset(receivers_local, 0, sizeof(int32_t) * num_parts * el);
+    std::memset(edge_mask, 0, sizeof(uint8_t) * num_parts * el);
+    std::memset(send_idx, 0, sizeof(int32_t) * num_parts * num_parts * h);
+    std::memset(send_mask, 0, sizeof(uint8_t) * num_parts * num_parts * h);
+
+    std::vector<int64_t> order, part_start;
+    group_edges_by_part(receivers, n_edges, nl, num_parts, order, part_start);
+
+    std::vector<int32_t> stamp(n_nodes, -1);
+    std::vector<int32_t> slot(n_nodes, 0);
+    std::vector<int64_t> halo_fill(num_parts * num_parts, 0);
+    for (int64_t p = 0; p < num_parts; ++p) {
+        // local-sender edges first, then remote, original order within each
+        int64_t cur = 0;
+        for (int64_t pass = 0; pass < 2; ++pass) {
+            for (int64_t i = part_start[p]; i < part_start[p + 1]; ++i) {
+                int64_t e = order[i];
+                int64_t s = senders[e];
+                int64_t q = s / nl;
+                if ((q == p) != (pass == 0)) continue;
+                int64_t pos = p * el + cur++;
+                receivers_local[pos] = (int32_t)(receivers[e] - p * nl);
+                edge_mask[pos] = 1;
+                if (q == p) {
+                    senders_local[pos] = (int32_t)(s - p * nl);
+                } else {
+                    if (stamp[s] != (int32_t)p) {
+                        stamp[s] = (int32_t)p;
+                        int64_t k = halo_fill[q * num_parts + p]++;
+                        slot[s] = (int32_t)k;
+                        send_idx[(q * num_parts + p) * h + k] =
+                            (int32_t)(s - q * nl);
+                        send_mask[(q * num_parts + p) * h + k] = 1;
+                    }
+                    senders_local[pos] = (int32_t)(nl + q * h + slot[s]);
+                }
+            }
+        }
+    }
+}
+
+// Locality-aware node ordering (SURVEY §7.3.4: boundary minimization before
+// the contiguous-range split).  Halo volume counts distinct (sender,
+// dst_part) pairs, i.e. each sender is a HYPEREDGE over its receiver set and
+// the objective is the hypergraph connectivity metric.  Greedy heuristic:
+// process senders by ASCENDING out-degree (rare senders have the most to
+// gain; hubs span every part regardless) and lay each sender's not-yet-
+// placed receivers out contiguously, then colocate the sender itself, so a
+// tail sender's whole neighbourhood lands in one contiguous node range
+// (= one part, zero halo copies).  O(E + N log N); on the 100k/1M power-law
+// benchmark this cuts total halo ~5x vs the raw order.
+// out_order[i] = old node id placed at new position i (a permutation).
+void locality_order(const int64_t* senders, const int64_t* receivers,
+                    int64_t n_edges, int64_t n_nodes, int64_t* out_order) {
+    std::vector<int64_t> ptr(n_nodes + 1, 0);
+    for (int64_t e = 0; e < n_edges; ++e) ptr[senders[e] + 1]++;
+    for (int64_t n = 0; n < n_nodes; ++n) ptr[n + 1] += ptr[n];
+    std::vector<int32_t> rs(n_edges);
+    std::vector<int64_t> fill(ptr.begin(), ptr.end() - 1);
+    for (int64_t e = 0; e < n_edges; ++e)
+        rs[fill[senders[e]]++] = (int32_t)receivers[e];
+
+    std::vector<int32_t> by_deg(n_nodes);
+    for (int64_t n = 0; n < n_nodes; ++n) by_deg[n] = (int32_t)n;
+    std::stable_sort(by_deg.begin(), by_deg.end(),
+                     [&](int32_t a, int32_t b) {
+                         return ptr[a + 1] - ptr[a] < ptr[b + 1] - ptr[b];
+                     });
+    std::vector<uint8_t> placed(n_nodes, 0);
+    int64_t pos = 0;
+    for (int64_t i = 0; i < n_nodes; ++i) {
+        int32_t s = by_deg[i];
+        if (ptr[s + 1] == ptr[s]) continue;
+        for (int64_t k = ptr[s]; k < ptr[s + 1]; ++k) {
+            int32_t v = rs[k];
+            if (!placed[v]) { placed[v] = 1; out_order[pos++] = v; }
+        }
+        if (!placed[s]) { placed[s] = 1; out_order[pos++] = s; }
+    }
+    for (int64_t n = 0; n < n_nodes; ++n)
+        if (!placed[n]) out_order[pos++] = n;
+}
+
+}  // extern "C"

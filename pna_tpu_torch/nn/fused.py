@@ -55,9 +55,24 @@ Statistics, batch-norm, mixing and the residual stay float32.
 ``csr_fused`` forms only the first pretrans layer inside its kernels, so it
 takes ``pretrans_layers=1`` only and raises ``ValueError`` otherwise, as the
 JAX fused backend does.  Dropout draws its mask from ``dropout_generator``
-(``nn/layers.py::Dropout``).  Tower tensor parallelism and the distributed
-arguments raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+(``nn/layers.py::Dropout``).
+
+The distributed path (``parallel/distributed_net.py``):
+
+* ``sender_table`` [Nl + P*H, F], the ghost table (local rows, then the
+  halo), is what ``graph.senders`` indexes: the edge gather reads it, and on
+  ``csr_fused`` the sender half ``u`` is computed from it, so that K3/K4
+  take a ``u`` with more rows than ``v`` and the gradient of the ghost rows
+  travels back through the exchange;
+* ``overlap`` splits the edges into local and boundary ones
+  (``parallel/partition.py::split_edges``) and aggregates each into a
+  moment sketch (``ops/partial_stats.py``), the local one while the halo
+  exchange is in flight: its first item may be the exchange's
+  ``PendingExchange``, waited for before the boundary partial;
+* ``bn_group`` is the process group of the batch-norm statistics;
+* ``tp_group`` (the JAX ``tp_axis``; ``parallel/tower_tp.py``): this rank
+  holds and computes ``towers / tp`` of the towers, end to end, and the
+  tower outputs are gathered once, before the batch norm and the mixing.
 """
 
 from __future__ import annotations
@@ -74,14 +89,16 @@ from pna_tpu_torch.nn.layers import (Dropout, dense, xavier_uniform_gain,
                                      zeros_init)
 from pna_tpu_torch.nn.sparse import (MaskedBatchNorm, aggregate_bank,
                                      bank_layout, check_bank)
-from pna_tpu_torch.ops import bucketed, csr_bank, csr_fused, fused_vjp
+from pna_tpu_torch.ops import (bucketed, csr_bank, csr_fused, fused_vjp,
+                               partial_stats)
 from pna_tpu_torch.ops.scalers import scaler_weights
+from pna_tpu_torch.parallel import tower_tp
 
 KERNELS = ('auto', 'csr', 'csr_fused', 'bucketed', 'ell', 'generic')
 _RENAMED = {'pallas': 'csr', 'pallas_fused': 'csr_fused'}
 
 
-def check_backend(kernel: str, compute_dtype=None, tp_axis=None) -> None:
+def check_backend(kernel: str, compute_dtype=None) -> None:
     """Raise for a backend or option the port does not run."""
     if kernel in _RENAMED:
         raise ValueError(f"the port names the JAX {kernel!r} backend "
@@ -93,9 +110,6 @@ def check_backend(kernel: str, compute_dtype=None, tp_axis=None) -> None:
                                   "ported: float32 and bfloat16 are, the "
                                   "two dtypes bench.py times (ROADMAP Queue "
                                   "1 item 7)")
-    if tp_axis is not None:
-        raise NotImplementedError("tower tensor parallelism is not ported "
-                                  "yet: ROADMAP Queue 1 item 13")
 
 
 def resolve_backend(kernel: str, graph: Graph, aggregators: Sequence[str],
@@ -182,6 +196,16 @@ def _ein_shared(x, k, cdt=torch.float32):
     return (_round(x, cdt) @ kb).reshape(x.shape[:-1] + (T, fo))
 
 
+def _rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``x[index]`` as ``index_select``, whose backward adds the rows'
+    gradients with ``index_add_``: the backward of ``x[index]``
+    (``index_put_`` with accumulate) sorts the index and adds each row's
+    duplicates one after another, which a power-law sender of 380,000 edges
+    turns into most of a step on the card (and, split over threads, into
+    sums of varying order on the CPU)."""
+    return torch.index_select(x, 0, index.long())
+
+
 def _mlp_dims(in_size, hidden, out, layers):
     return ([in_size] + [hidden] * (layers - 1) + [out] if layers > 1
             else [in_size, out])
@@ -222,12 +246,12 @@ class PNALayerFused(nn.Module):
                  edge_dim: int = 0, dropout: float = 0.0,
                  pretrans_layers: int = 1, posttrans_layers: int = 1,
                  kernel: str = 'csr', max_degree: int = 0,
-                 compute_dtype=None, tp_axis: Optional[str] = None,
+                 compute_dtype=None, bn_group=None, tp_group=None,
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None,
                  dropout_generator: Optional[torch.Generator] = None):
         super().__init__()
-        check_backend(kernel, compute_dtype, tp_axis)
+        check_backend(kernel, compute_dtype)
         if kernel == 'csr_fused' and pretrans_layers != 1:
             raise ValueError("kernel='csr_fused' supports pretrans_layers=1 "
                              "only: its kernels form the first pretrans "
@@ -242,6 +266,10 @@ class PNALayerFused(nn.Module):
             raise ValueError(f"in_dim {in_dim} not divisible by {towers}")
         if out_dim % towers:
             raise ValueError(f"out_dim {out_dim} not divisible by {towers}")
+        tp, tp_rank = tower_tp.group_shape(tp_group)
+        if towers % tp:
+            raise ValueError(f"{towers} towers do not split over {tp} "
+                             "ranks")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -255,16 +283,25 @@ class PNALayerFused(nn.Module):
         self.compute_dtype = compute_dtype or torch.float32
         self.ft = in_dim // towers if divide_input else in_dim
         self.fo = out_dim // towers
+        self.tp_group, self.tp_rank = tp_group, tp_rank
+        self.local_towers = towers // tp
         fe = edge_dim if edge_features else 0
         A, S = len(self.aggregators), len(self.scalers)
-        self.pretrans = StackedParams(
+        # the full stack of towers is drawn, so that every tp draws the same
+        # weights; a rank keeps its own towers
+        pretrans = StackedParams(
             _mlp_dims(2 * self.ft + fe, self.ft, self.ft, pretrans_layers),
             towers, generator)
-        self.posttrans = StackedParams(
+        posttrans = StackedParams(
             _mlp_dims((A * S + 1) * self.ft, self.fo, self.fo,
                       posttrans_layers), towers, generator)
+        if tp > 1:
+            tower_tp.keep_towers(pretrans, tp_rank, self.local_towers)
+            tower_tp.keep_towers(posttrans, tp_rank, self.local_towers)
+        self.pretrans, self.posttrans = pretrans, posttrans
         if batch_norm:
-            self.batchnorm_h = MaskedBatchNorm(towers * self.fo)
+            self.batchnorm_h = MaskedBatchNorm(towers * self.fo,
+                                               group=bn_group)
         self.dropout = Dropout(dropout, dropout_generator)
         self.mixing = dense(towers * self.fo, out_dim,
                             xavier_uniform_gain(1.0 / out_dim), zeros_init,
@@ -274,24 +311,47 @@ class PNALayerFused(nn.Module):
     def forward(self, graph: Graph, h: torch.Tensor,
                 e: Optional[torch.Tensor] = None,
                 layout: Optional[csr_bank.CSRLayout] = None,
-                sender_table=None, overlap=None) -> torch.Tensor:
+                sender_table: Optional[torch.Tensor] = None,
+                overlap=None) -> torch.Tensor:
         """h [N, in_dim], e [E, edge_dim] (edge features) -> [N, out_dim].
         ``layout`` is the batch's CSR layout, shared by every layer; built
         here when not given and the backend takes it (``csr``,
         ``csr_fused``, and ``generic`` on a batch with ``edge_ptr`` and no
-        ELL table)."""
-        if sender_table is not None or overlap is not None:
-            raise NotImplementedError("the distributed layer path is not "
-                                      "ported yet: ROADMAP Queue 1 item 13")
-        backend = resolve_backend(self.kernel, graph, self.aggregators,
-                                  self.scalers, h.device)
-        if layout is None:
-            layout = backend_layout(backend, graph, self.max_degree)
-        T, Ft, Fo = self.towers, self.ft, self.fo
+        ELL table).
+
+        ``sender_table`` [Nl + P*H, in_dim]: the ghost table that
+        ``graph.senders`` indexes (None: ``h`` itself).  ``overlap``: the
+        tuple ``(halo, senders_l, receivers_l, mask_l, senders_b,
+        receivers_b, mask_b[, e_l, e_b])`` of the split edges
+        (``parallel/partition.py::split_edges``; the boundary senders index
+        ``halo``, which may be a ``PendingExchange``; ``e_l``/``e_b`` are the
+        edge features split alike)."""
+        T, Ft, Fo = self.local_towers, self.ft, self.fo
         A, S = len(self.aggregators), len(self.scalers)
         N, E = h.shape[0], graph.n_edge_pad
         cdt = self.compute_dtype
-        hb = h.to(cdt)
+        if sender_table is not None and sender_table.shape[1] != h.shape[1]:
+            raise ValueError(f"sender_table width {sender_table.shape[1]} "
+                             f"!= h width {h.shape[1]}")
+        if overlap is not None:
+            n_want = 9 if self.edge_features else 7
+            if len(overlap) != n_want:
+                raise ValueError(f"overlap takes {n_want} items here (the "
+                                 "split edges' tables, and with edge "
+                                 "features their split features), got "
+                                 f"{len(overlap)}")
+            if not (all(s in fused_vjp._SCALERS for s in self.scalers)
+                    and partial_stats.supports(self.aggregators)):
+                raise ValueError("the overlap path needs sketch-decomposable "
+                                 f"aggregators/scalers, got "
+                                 f"{self.aggregators}/{self.scalers}")
+            backend = 'overlap'
+        else:
+            backend = resolve_backend(self.kernel, graph, self.aggregators,
+                                      self.scalers, h.device)
+        if layout is None and backend != 'overlap':
+            layout = backend_layout(backend, graph, self.max_degree)
+        hb = self._tower_input(h.to(cdt))             # this rank's towers
 
         # ---- pretrans: split-kernel first layer, no concat built ----
         k0, b0 = self.pretrans.layer(0)
@@ -307,16 +367,48 @@ class PNALayerFused(nn.Module):
                 m = _ein_shared(x, k_src, cdt) + _ein_shared(x, k_dst, cdt)
             return self.pretrans.rest(m + b0, cdt)
 
-        Z = moments = None
-        if backend == 'csr_fused':
-            # node halves only: the kernels form u[snd] + v[rcv] (+ e ke)
+        def pretrans_edges(src, dst, eterm):
+            """The messages src K_src + dst K_dst (+ e K_e) + b0 and the
+            later layers: [K, T, Ft] float32."""
+            K = src.shape[0]
             if self.divide_input:
-                u = _ein(hb.reshape(N, T, Ft), k_src, cdt)
+                msg = (_ein(src.reshape(K, T, Ft), k_src, cdt)
+                       + _ein(dst.reshape(K, T, Ft), k_dst, cdt))
+            else:
+                msg = (_ein_shared(src, k_src, cdt)
+                       + _ein_shared(dst, k_dst, cdt))
+            if eterm is not None:
+                msg = msg + _ein_shared(eterm, k0[:, 2 * Ft:], cdt)
+            return self.pretrans.rest(msg + b0, cdt)
+
+        src_rows = (hb if sender_table is None
+                    else self._tower_input(sender_table.to(cdt)))
+        Z = moments = None
+        if backend == 'overlap':
+            # local partial while the exchange is in flight, then boundary
+            halo, s_l, r_l, m_l, s_b, r_b, m_b = overlap[:7]
+            e_l, e_b = overlap[7:] if self.edge_features else (None, None)
+            msg_l = pretrans_edges(_rows(hb, s_l), _rows(hb, r_l), e_l)
+            sk = partial_stats.partial_sketch(
+                msg_l.reshape(-1, T * Ft), r_l, N, m_l)
+            if hasattr(halo, 'wait'):
+                halo = halo.wait()
+            halo = self._tower_input(halo.to(cdt))
+            msg_b = pretrans_edges(_rows(halo, s_b), _rows(hb, r_b), e_b)
+            sk = partial_stats.combine(sk, partial_stats.partial_sketch(
+                msg_b.reshape(-1, T * Ft), r_b, N, m_b))
+            Z = partial_stats.finalize_bank(sk, self.aggregators)
+            deg = sk.cnt
+        elif backend == 'csr_fused':
+            # node halves only: the kernels form u[snd] + v[rcv] (+ e ke);
+            # u has a row per sender-table row
+            if self.divide_input:
+                u = _ein(src_rows.reshape(-1, T, Ft), k_src, cdt)
                 v = _ein(hb.reshape(N, T, Ft), k_dst, cdt)
             else:
-                u = _ein_shared(hb, k_src, cdt)
+                u = _ein_shared(src_rows, k_src, cdt)
                 v = _ein_shared(hb, k_dst, cdt)
-            u = u.reshape(N, T * Ft).to(cdt)
+            u = u.reshape(-1, T * Ft).to(cdt)
             v = (v + b0).reshape(N, T * Ft).to(cdt)
             ef = ke = None
             if self.edge_features:
@@ -327,21 +419,14 @@ class PNALayerFused(nn.Module):
                                          self.aggregators)  # [N, A, T*Ft]
             deg = layout.deg
         else:
-            src = hb[graph.senders]
+            src = _rows(src_rows, graph.senders)
             if graph.bucket_spec is not None:
                 # the receiver gather is a broadcast in the bucketed layout
                 dst = bucketed.expand_to_edges(hb, graph.bucket_spec)
             else:
-                dst = hb[graph.receivers]
-            if self.divide_input:
-                msg = (_ein(src.reshape(E, T, Ft), k_src, cdt)
-                       + _ein(dst.reshape(E, T, Ft), k_dst, cdt))
-            else:
-                msg = (_ein_shared(src, k_src, cdt)
-                       + _ein_shared(dst, k_dst, cdt))
-            if self.edge_features:
-                msg = msg + _ein_shared(e, k0[:, 2 * Ft:], cdt)
-            msg = self.pretrans.rest(msg + b0, cdt)         # [E, T, Ft]
+                dst = _rows(hb, graph.receivers)
+            msg = pretrans_edges(src, dst,
+                                 e if self.edge_features else None)
             if backend != 'generic':
                 # stored in the compute dtype; the banks widen to float32
                 msg = msg.to(cdt).reshape(E, T * Ft)
@@ -415,6 +500,8 @@ class PNALayerFused(nn.Module):
             out = out + torch.einsum('ntos,sn->nto', _round(y, cdt),
                                      _round(w, cdt)) + bp
         out = self.posttrans.rest(out, cdt).reshape(N, T * Fo)
+        if self.tp_group is not None:
+            out = tower_tp.gather_towers(out, self.tp_group)   # [N, towers*Fo]
 
         if self.graph_norm:
             out = out * graph.snorm_n
@@ -425,3 +512,11 @@ class PNALayerFused(nn.Module):
         if self.residual:
             out = h + out
         return out
+
+    def _tower_input(self, x: torch.Tensor) -> torch.Tensor:
+        """The columns of ``x`` [..., in_dim] that this rank's towers read:
+        all of them without tower TP or with shared tower inputs."""
+        if self.tp_group is None or not self.divide_input:
+            return x
+        w = self.local_towers * self.ft
+        return x[..., self.tp_rank * w:(self.tp_rank + 1) * w]

@@ -23,6 +23,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from pna_tpu_torch.parallel import collectives
+
 
 def _uniform(shape, bound, generator):
     u = torch.rand(shape, generator=generator, dtype=torch.float32)
@@ -118,12 +120,17 @@ class BatchNorm(nn.Module):
     normalises with the biased batch variance and moves the running
     variance towards that same biased variance (torch's BatchNorm1d would
     move it towards the unbiased one); eval mode uses the running
-    statistics."""
+    statistics.
+
+    ``group`` (a process group; data parallelism, ``train/engine.py``): the
+    count and the sums of x and x^2 are summed over its ranks first, so a
+    batch sharded over them normalises as the whole batch would."""
 
     def __init__(self, num_features: int, momentum: float = 0.1,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, group=None):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.group = group
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -132,8 +139,16 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             axes = tuple(range(x.ndim - 1))
-            mean = x.mean(axes)
-            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            if self.group is None:
+                mean, ex2 = x.mean(axes), (x * x).mean(axes)
+            else:
+                f = x.shape[-1]
+                n = x.new_full((1,), x.numel() // f)
+                tot = collectives.all_reduce(
+                    torch.cat([n, x.sum(axes), (x * x).sum(axes)]),
+                    self.group)
+                mean, ex2 = tot[1:f + 1] / tot[0], tot[f + 1:] / tot[0]
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(1 - self.momentum).add_(
                     self.momentum * mean)

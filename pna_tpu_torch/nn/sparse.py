@@ -51,6 +51,7 @@ from pna_tpu_torch.ops import segment as seg
 from pna_tpu_torch.ops.aggregators import SEGMENT_AGGREGATORS, SegmentCtx
 from pna_tpu_torch.ops.ell import ELL_AGGREGATORS, EllCtx
 from pna_tpu_torch.ops.scalers import SCALERS
+from pna_tpu_torch.parallel import collectives
 
 
 def bank_layout(graph: Graph, max_degree: int = 0
@@ -134,12 +135,19 @@ class MaskedBatchNorm(nn.Module):
     shifted moments about the running mean (no E[x^2] - E[x]^2 cancellation
     when |mean| >> std), and updates the running mean and the unbiased running
     variance with momentum 0.1; eval mode uses the running statistics.
+
+    ``group`` (a process group; the JAX ``axis_name``): the count and the two
+    moment sums are summed over its ranks before the mean and variance
+    (``parallel/collectives.all_reduce``, whose backward sums too), so a
+    partitioned batch normalises with the statistics of the whole.  The
+    shift, the running mean, is the same on every rank.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, group=None):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.group = group
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -150,11 +158,16 @@ class MaskedBatchNorm(nn.Module):
             shift = self.running_mean.clone()   # updated in place below
             xc = x - shift
             m = mask.to(x.dtype)[:, None]
-            n = torch.clamp(m.sum(), min=1.0)
-            dmean = (xc * m).sum(0) / n
+            n, s1, s2 = m.sum(), (xc * m).sum(0), (xc * xc * m).sum(0)
+            if self.group is not None:
+                f = s1.shape[0]
+                tot = collectives.all_reduce(torch.cat([n.reshape(1), s1, s2]),
+                                 self.group)
+                n, s1, s2 = tot[0], tot[1:f + 1], tot[f + 1:]
+            n = torch.clamp(n, min=1.0)
+            dmean = s1 / n
             mean = shift + dmean
-            var = torch.clamp((xc * xc * m).sum(0) / n - dmean * dmean,
-                              min=0.0)
+            var = torch.clamp(s2 / n - dmean * dmean, min=0.0)
             with torch.no_grad():
                 # running_var takes the unbiased estimate, as torch does
                 unbiased = var * n / torch.clamp(n - 1.0, min=1.0)

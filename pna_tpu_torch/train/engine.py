@@ -26,9 +26,17 @@ record (and ``metrics_path`` JSONL line) holds, beside the JAX keys
 ``loss_train`` and ``loss_val``, host seconds of the epoch with its
 validation (``epoch_s``) and of its training pass (``train_s``, ending in
 the read of the last loss), and the pass's number of steps
-(``train_steps``).  ``data_parallel`` does nothing with one card, as in the
-JAX package on one device; with several it raises (the distributed stack is
-ROADMAP Queue 1 item 13).
+(``train_steps``).
+
+``data_parallel``: each training step's bucket is split over the ranks of
+the process group (one process per card, ``torchrun``; the trainer joins
+the group from ``torchrun``'s environment), each rank back-propagates its
+shard's loss over the world size, the gradients are summed over the ranks
+and every ``nn.layers.BatchNorm`` of the model sums its statistics over
+them, so the step equals the single-rank step on the whole bucket (what
+GSPMD gives the JAX engine).  Evaluation runs the whole split on every
+rank.  In one process it does nothing, as in the JAX package on one
+device.
 """
 
 from __future__ import annotations
@@ -39,8 +47,11 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pna_tpu_torch.device import DeviceLike, resolve_device
+from pna_tpu_torch.nn.layers import BatchNorm
+from pna_tpu_torch.parallel import collectives, multihost
 from pna_tpu_torch.train.losses import (specific_loss_multiple_batches,
                                         total_loss,
                                         total_loss_multiple_batches)
@@ -75,12 +86,14 @@ class MultitaskTrainer:
 
     def __init__(self, model: torch.nn.Module, dataset: Dict[str, Any],
                  config: TrainConfig, device: DeviceLike = None):
+        self.world = 1
+        if config.data_parallel and multihost.process_count() > 1:
+            multihost.initialize(device=device)
+            self.world = multihost.process_count()
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.group = dist.group.WORLD
         self.device = resolve_device(device)
-        if (config.data_parallel and self.device.type == 'cuda'
-                and torch.cuda.device_count() > 1):
-            raise NotImplementedError(
-                "data_parallel over several cards is not ported yet: "
-                "ROADMAP Queue 1 item 13")
         where = {p.device.type for p in model.parameters()}
         if where != {self.device.type}:
             raise ValueError(f"model on {where}, trainer on {self.device}")
@@ -114,13 +127,31 @@ class MultitaskTrainer:
     # -- epochs -------------------------------------------------------------
     def train_step(self, feats, adj, nl, gl) -> torch.Tensor:
         """One Adam step on one bucket in training mode; its loss (on the
-        device, not read)."""
+        device, not read).  Under data parallelism this rank takes its
+        shard of the bucket, and the loss is the whole bucket's."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
+        if self.world > 1:
+            feats, adj, nl, gl = (self._shard(x) for x in (feats, adj, nl,
+                                                           gl))
         loss = self._loss(self.model(feats, adj), nl, gl)
-        loss.backward()
+        if self.world > 1:
+            (loss / self.world).backward()
+            collectives.all_reduce_grads(self.model.parameters())
+            loss = collectives.all_reduce(loss.detach()) / self.world
+        else:
+            loss.backward()
         self.optimizer.step()
         return loss.detach()
+
+    def _shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's equal share of a bucket's leading (graph) axis."""
+        if x.shape[0] % self.world:
+            raise ValueError(f"a bucket of {x.shape[0]} graphs does not "
+                             f"split over {self.world} ranks")
+        n = x.shape[0] // self.world
+        r = multihost.process_index()
+        return x[r * n:(r + 1) * n]
 
     def train_epoch(self) -> float:
         """One Adam step per train bucket; the last bucket's loss."""

@@ -980,3 +980,100 @@ def test_cuda_hiv_ell_step_matches_cpu():
     assert abs(losses['card'] - losses['cpu']) <= 1e-4 * abs(losses['cpu'])
     assert abs(losses['card'] - losses['csr']) <= 1e-4 * abs(losses['csr'])
     _hold_grads(models['card'], models['cpu'], 2e-3)
+
+
+@pytest.fixture
+def nccl_one_rank():
+    """A 1-rank NCCL group in this process (no environment: an in-memory
+    store), left again after the test."""
+    from pna_tpu_torch.parallel import multihost
+    _need_card()
+    multihost.initialize(backend='nccl')
+    yield
+    multihost.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_halo_exchange_one_rank(nccl_one_rank):
+    """halo_exchange over the 1-rank NCCL group is the local gather, waited
+    for at once and in flight; its backward is the gather's."""
+    import torch.distributed as dist
+    from pna_tpu_torch.parallel.partition import halo_exchange
+    assert dist.get_backend() == 'nccl'
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(300, 16, generator=gen).cuda().requires_grad_(True)
+    idx = torch.randint(0, 300, (1, 40), generator=gen,
+                        dtype=torch.int32).cuda()
+    mask = (torch.rand(1, 40, generator=gen) < 0.6).cuda()
+    want = x[idx.reshape(-1).long()] * mask.reshape(-1, 1).float()
+    got = halo_exchange(x, idx, mask)
+    assert torch.equal(got, want)
+    assert torch.equal(halo_exchange(x, idx, mask, wait=False).wait(), want)
+    w = torch.randn(40, 16, generator=gen).cuda()
+    g1, = torch.autograd.grad((got * w).sum(), x)
+    g2, = torch.autograd.grad((want * w).sum(), x)
+    assert torch.allclose(g1, g2, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ['csr', 'csr_fused', 'generic'])
+def test_cuda_distributed_step_matches_cpu(nccl_one_rank, kernel):
+    """The large-graph trainer's step (``make_node_train_step``, SGD 1e-2)
+    on the card over the 1-rank NCCL mesh (a small hub-skewed graph with
+    edge features, sorted partition) against the same step on the CPU
+    without groups, from the same weights: the loss within 1e-4, every
+    gradient within 2e-3 of its scale, every updated weight within 1e-2 x
+    2e-3 of that scale (plus two float32 roundings); K1/K2 or K3/K4 once
+    per layer (generic on a sorted part: the sparse bank's K1/K2)."""
+    import torch.distributed as dist
+    from pna_tpu_torch.parallel import multihost
+    from pna_tpu_torch.parallel.distributed_net import (DistributedPNANet,
+                                                        mesh_groups)
+    from pna_tpu_torch.parallel.partition import (partition_edges,
+                                                  powerlaw_graph,
+                                                  sort_partition_edges)
+    from pna_tpu_torch.train.largegraph import make_node_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, e, lr = 400, 3200, 1e-2
+    send, recv = powerlaw_graph(n, e, seed=1, exponent=2.0)
+    recv[:e // 5] = 0
+    part = sort_partition_edges(partition_edges(send, recv, n, 1))
+    rng = np.random.RandomState(2)
+    ef = part.scatter_edge_features(rng.randn(e, 3).astype(np.float32))
+    x = part.scatter_features(rng.randn(n, 6).astype(np.float32))
+    y = rng.randn(*part.node_mask.shape).astype(np.float32)
+    mesh = multihost.hybrid_mesh({'data': 1}, {'graph': 1},
+                                 device_type='cuda')
+    _, graph_group, _ = mesh_groups(mesh)
+    kw = dict(feat_dim=6, hidden_dim=16, out_dim=16, n_layers=2, towers=2,
+              node_level=True, edge_features=True, edge_dim=3,
+              kernel=kernel, seed=0)
+    nets = {'card': DistributedPNANet(graph_group=graph_group,
+                                      bn_group=dist.group.WORLD,
+                                      device='cuda', **kw),
+            'cpu': DistributedPNANet(device='cpu', **kw)}
+    losses = {}
+    for where, net in nets.items():
+        d, m = ('cuda', mesh) if where == 'card' else ('cpu', None)
+        step, _, _ = make_node_train_step(
+            part, m, net, torch.optim.SGD(net.parameters(), lr=lr),
+            efeats=ef)
+        xs, ys, ms = (torch.from_numpy(a[0]).to(d)
+                      for a in (x, y, part.node_mask))
+        fk.reset_launch_counts()
+        losses[where] = step(xs, ys, ms)
+        if where == 'card':
+            counts = fk.launch_counts()
+    assert abs(losses['card'] - losses['cpu']) <= 1e-4 * abs(losses['cpu'])
+    _hold_grads(nets['card'], nets['cpu'], 2e-3)
+    floor = 1e-3 * max(float(p.grad.abs().max())
+                       for p in nets['cpu'].parameters())
+    eps = torch.finfo(torch.float32).eps
+    for a, b in zip(nets['card'].parameters(), nets['cpu'].parameters()):
+        bound = (lr * 2e-3 * max(float(b.grad.abs().max()), floor)
+                 + 2 * eps * float(b.detach().abs().max()))
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= bound
+    want = {'csr': ('csr_moment_sketch', 'csr_dmsg'),
+            'csr_fused': ('csr_pretrans_sketch', 'csr_pretrans_dmsg'),
+            'generic': ('csr_moment_sketch', 'csr_dmsg')}[kernel]
+    assert counts == {k: 2 if k in want else 0 for k in counts}

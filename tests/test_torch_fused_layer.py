@@ -178,30 +178,37 @@ def test_bf16_layer_matches_jax_bf16(kernel):
                in zip(pairs, pairs32)) > 5e-2
 
 
-@pytest.mark.parametrize("kw,err", [
-    (dict(kernel='auto', tp_axis='model'), NotImplementedError),
-    (dict(kernel='bucketed', tp_axis='model'), NotImplementedError),
-    (dict(kernel='ell', tp_axis='model'), NotImplementedError),
-    (dict(kernel='generic', tp_axis='model'), NotImplementedError),
-    (dict(kernel='pallas_fused'), ValueError),
-    (dict(kernel='pallas'), ValueError),
-    (dict(compute_dtype=torch.float16), NotImplementedError),
-    (dict(tp_axis='model'), NotImplementedError),
-])
-def test_unported_options_raise(kw, err):
-    """The options still to port raise, on every backend; the JAX names of
-    the kernel backends raise naming the port's."""
-    want = {'pallas': "'csr'", 'pallas_fused': "'csr_fused'"}
-    with pytest.raises(err, match=want.get(kw.get('kernel'), "ROADMAP")):
+# the ids are the cases' names from when the tower and distributed options
+# were still to port (they raised NotImplementedError then)
+@pytest.mark.parametrize("kw,err,match", [
+    (dict(kernel='auto', tp_group='model'), TypeError, "process group"),
+    (dict(kernel='bucketed', tp_group='model'), TypeError, "process group"),
+    (dict(kernel='ell', tp_group='model'), TypeError, "process group"),
+    (dict(kernel='generic', tp_group='model'), TypeError, "process group"),
+    (dict(kernel='pallas_fused'), ValueError, "'csr_fused'"),
+    (dict(kernel='pallas'), ValueError, "'csr'"),
+    (dict(compute_dtype=torch.float16), NotImplementedError, "ROADMAP"),
+    (dict(tp_group='model'), TypeError, "process group"),
+], ids=[f"kw{i}-{e}" for i, e in enumerate(
+    ['NotImplementedError'] * 4 + ['ValueError'] * 2
+    + ['NotImplementedError'] * 2)])
+def test_unported_options_raise(kw, err, match):
+    """Options the port does not take raise, on every backend: the JAX
+    names of the kernel backends raise naming the port's, float16 names the
+    ROADMAP item, and tower TP takes a process group, not a mesh axis
+    name."""
+    with pytest.raises(err, match=match):
         PNALayerFused(D, D, AGGS, SCALERS, AVG_D, device='cpu', **kw)
 
 
 def test_distributed_arguments_raise():
+    """Malformed distributed arguments raise: a sender table of another
+    width than h, an overlap tuple without the split tables."""
     rng = np.random.RandomState(2)
     tg = batch_graphs(_graphs(rng), with_snorm=True)
     tl = PNALayerFused(D, D, AGGS, SCALERS, AVG_D, device='cpu')
     h = torch.zeros(tg.n_node_pad, D)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl(tg, h, sender_table=h)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="width"):
+        tl(tg, h, sender_table=h[:, 1:])
+    with pytest.raises(ValueError, match="overlap takes 7"):
         tl(tg, h, overlap=(h,))
