@@ -113,7 +113,8 @@ Phases (any failure raises, so the script exits non-zero):
     of the others), and ``dryrun_multichip(1)``; K1-K4 against their plain
     versions at the path's shapes (the CLI's graph, 100,000 nodes and
     1,000,000 power-law edges, as one sorted part; F = 64; K3's u from the
-    part's ghost table; Fe = 4) and on the same graph with a fifth of the
+    part's ghost table; Fe = 64, the edge features as the net embeds
+    them) and on the same graph with a fifth of the
     edges sent to node 0 (in-degree 200,007), the sums held against float64
     there, timed beside their byte bounds; ``cli.train_largegraph.main`` at
     its defaults with ``--d_graph 1`` for 30 steps (``--eval_every 10``) on
@@ -126,8 +127,27 @@ Phases (any failure raises, so the script exits non-zero):
     the trainer's step on ``csr``, ``csr_fused``, ``bucketed`` and
     ``generic`` at 1,000,000 edges and on ``csr`` and ``bucketed`` at
     100,000 (median step, peak memory per padded-edge-row byte, a profile):
-    the readings of ``ops/layout.py``'s constants;
-14. bench, the twin of ``bench.py`` (``pna_tpu_torch/bench.py``): (a)
+    the readings of ``ops/layout.py``'s constants (each profile gives K1-K4's
+    ms and launches per step);
+14. the sparse path on the power-law graph: the large-graph CLI's graph
+    (100,000 nodes, 1,000,000 edges, exponent 1.5, its seed; a sender of
+    about 380,000 edges, uniform receivers) as one receiver-sorted graph
+    with ``edge_ptr``, and its twin with a fifth of the edges sent to node
+    0; on it the edge-list layers at their configs' full widths:
+    ``PNASimpleLayerSparse`` (the HIV config), ``PNALayerSparse`` (a middle
+    layer of the ZINC config, 5 towers), ``PNAConvSimplePyG`` and
+    ``PNAConvPyG`` (5 towers) at the PyG example's width, the edge-list
+    GCN, GAT and GIN, and, on the twin, ``aggregate_bank`` with identity,
+    normalised_mean, softmax, softmin and moment3 (the segment form).  Each
+    is held card vs CPU on the same graph at 100,000 edges and its twin
+    (phase 4's limits), ``hiv_simple``, ``zinc_towers`` and
+    ``segment_bank`` on the full graph too, then its forward and backward
+    is timed on the full graph (median of 5 steps after 2), with its peak memory, exact K1/K2
+    launches (one each per bank: 5 per step for the towered DGL layer, 1
+    for the others, 0 for GCN, GAT, GIN and the segment form) and one
+    profiled step: device ms, the top kernels and no ``index_put`` kernel
+    or host op (``x[index]``'s backward);
+15. bench, the twin of ``bench.py`` (``pna_tpu_torch/bench.py``): (a)
     ``python -m pna_tpu_torch.bench``'s ``main([])`` in this process (csr,
     float32 and bfloat16, flat Adam, 120 timed steps each), its JSON line
     printed: 42,356 real edges and 19,784 nodes, edges/s = edges x 4 / step
@@ -183,9 +203,13 @@ from pna_tpu_torch.data.hiv import HIVDataset
 from pna_tpu_torch.data.molecules import (ZincDataset, batch_iterator,
                                           collate_records, derive_bucket_caps)
 from pna_tpu_torch.data.superpixels import SuperpixelsDataset
+from pna_tpu_torch.graph import batch_graphs
 from pna_tpu_torch.nn.nets import PNANetHIV, PNANetMolecules
-from pna_tpu_torch.nn.pyg import PNAConvPyG, PNANetPyGExample
-from pna_tpu_torch.nn.sparse import PNALayerSparse
+from pna_tpu_torch.nn.pyg import (PNAConvPyG, PNAConvSimplePyG,
+                                  PNANetPyGExample)
+from pna_tpu_torch.nn.sparse import (GATLayerSparse, GCNLayerSparse,
+                                     GINLayerSparse, PNALayerSparse,
+                                     PNASimpleLayerSparse, aggregate_bank)
 from pna_tpu_torch.ops import build, csr_bank, csr_kernels
 from pna_tpu_torch.ops import csr_fused_kernels as fk
 from pna_tpu_torch.ops.csr_bank import csr_layout, layout_from_graph
@@ -935,9 +959,11 @@ def profile_steps(step_fn, step_ms, steps=3):
         "than the timed steps): " + "; ".join(
             f"{key} {ms:.3f} ms x{count}" for key, ms, count in host[:8]))
     # the merge kernels of split nodes never launch on an unsplit batch
-    ours = {k: sum(r[1] for r in rows if f"{k}_" in r[0]) for k in SOURCES}
-    log("  profile: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in
-                                  ours.items()) + " per step")
+    ours = {k: (sum(r[1] for r in rows if f"{k}_" in r[0]),
+                sum(r[2] for r in rows if f"{k}_" in r[0])) for k in SOURCES}
+    log("  profile: " + ", ".join(f"{k} {ms:.4f} ms in {n} launches"
+                                  for k, (ms, n) in ours.items())
+        + " per step")
     for key, ms, count in rows[:12]:
         log(f"  profile:   {ms:8.4f} ms {100 * ms / total:5.1f}%  x{count}  "
             f"{key[:90]}")
@@ -1939,6 +1965,9 @@ LG_BENCH = (('csr', 1_000_000), ('bucketed', 1_000_000),
             ('csr_fused', 1_000_000), ('generic', 1_000_000),
             ('csr', 100_000), ('bucketed', 100_000))
 LG_FE = 4                    # --edge_feat_dim of the csr_fused runs
+# the width of the edge features K3/K4 read on that path: the net embeds
+# them to the hidden width first (DistributedPNANet's embedding_e)
+LG_KERNEL_FE = LG_HIDDEN
 
 
 def lg_exchange(dev):
@@ -2046,15 +2075,16 @@ def lg_hub_steps(dev):
 
 
 def lg_pretrans_inputs(ptr, n_u, n_rows, dev, gen):
-    """(u [n_u, F], v [N, F], ef [n_rows, LG_FE], ke [LG_FE, F]) with tie
-    material: u rows repeat in groups of four senders, ef is one of four
-    edge types."""
+    """(u [n_u, F], v [N, F], ef [n_rows, LG_KERNEL_FE], ke [LG_KERNEL_FE,
+    F]) with tie material: u rows repeat in groups of four senders, ef is
+    one of four edge types."""
     n, f = ptr.numel() - 1, LG_HIDDEN
     u = torch.randn(n_u // 4 + 1, f, generator=gen)[torch.arange(n_u) // 4]
-    table = torch.randn(4, LG_FE, generator=gen)
+    table = torch.randn(4, LG_KERNEL_FE, generator=gen)
     bond = torch.randint(0, 4, (n_rows,), generator=gen)
     return (u.to(dev), torch.randn(n, f, generator=gen).to(dev),
-            table[bond].to(dev), torch.randn(LG_FE, f, generator=gen).to(dev))
+            table[bond].to(dev),
+            torch.randn(LG_KERNEL_FE, f, generator=gen).to(dev))
 
 
 def lg_kernel_cases(dev):
@@ -2113,7 +2143,7 @@ def lg_kernel_cases(dev):
         if not hub_case_:
             res["csr_moment_sketch"]["ms_no_ties"] = t["k1_no_ties"]
         res["shape"] = dict(nodes=cfg.num_nodes, rows=rows, f=LG_HIDDEN,
-                            u_rows=n_u, fe=LG_FE)
+                            u_rows=n_u, fe=LG_KERNEL_FE)
     return res
 
 
@@ -2288,6 +2318,258 @@ def largegraph_phase(dev, card):
     res['seconds'] = time.perf_counter() - t0
     log(f"largegraph: phase took {res['seconds']:.1f} s on {card}")
     return res, kernels
+
+
+# ---------------------------------------------------------------------------
+# sparse path on the power-law graph: the edge-list layers at full width on
+# the large-graph CLI's graph, whose senders follow a power law
+
+SP_WARM, SP_TIMED = 2, 5
+# the card-vs-CPU check's graph: powerlaw_graph at a tenth of the nodes and
+# edges, and its receiver-hub twin
+SP_CHECK_NODES, SP_CHECK_EDGES = 10_000, 100_000
+SP_SEED = 13
+# the cases also held card vs CPU on the full graph that is timed: the
+# sender hub's index_add_ (hiv_simple), the towers' K1/K2 at E = 1M and
+# F = 75 (zinc_towers) and the receiver hub of in-degree 200,007
+# (segment_bank)
+SP_FULL_HOLD = ('hiv_simple', 'zinc_towers', 'segment_bank')
+# kernels and host ops of x[index]'s backward (index_put_ with accumulate:
+# at::native's indexing_backward_kernel family); none may run on the path
+INDEX_PUT_NAMES = ('index_put', 'indexing_backward')
+# the PyG example net's aggregators and scalers (nn/pyg.py::
+# PNANetPyGExample's defaults) at PYG_CONFIG's width
+PYG_AGGS = ('mean', 'min', 'max', 'std')
+PYG_SCALERS = ('identity', 'amplification', 'attenuation')
+SEGMENT_AGGS = ('identity', 'normalised_mean', 'softmax', 'softmin',
+                'moment3')
+
+
+class SegmentBankCase(torch.nn.Module):
+    """``aggregate_bank`` over messages ``h[senders] @ w`` with the
+    aggregators no kernel computes (the segment form on every device);
+    identity's self message is ``h @ w``."""
+
+    def __init__(self, width, scalers, avg_d):
+        super().__init__()
+        gen = torch.Generator().manual_seed(SP_SEED)
+        self.w = torch.nn.Parameter(torch.randn(width, width, generator=gen)
+                                    / math.sqrt(width))
+        self.scalers, self.avg_d = scalers, avg_d
+
+    def forward(self, graph, h):
+        hw = h @ self.w
+        msg = torch.index_select(hw, 0, graph.senders)
+        return aggregate_bank(graph, msg, SEGMENT_AGGS, self.scalers,
+                              self.avg_d, self_msg=hw)
+
+
+def sp_cases():
+    """(name, graph kind, input width, K1 and K2 launches per step, make
+    (device, avg_d) -> layer) of the phase: the HIV config's simple layer
+    (dropout 0), a middle layer of the ZINC config (fused_towers=False: a
+    bank per tower), the PyG example's conv, PNAConvPyG with 5 towers, the
+    edge-list GCN, GAT and GIN, and the segment form of the bank."""
+    hiv = cli_config(main_HIV, HIV_CONFIG)['net_params']
+    zinc = cli_config(main_molecules, ZINC_CONFIG)['net_params']
+    hw, zw = hiv['hidden_dim'], zinc['hidden_dim']
+    pw = PYG_CONFIG['net_params']['hidden_dim']
+    h_aggs, h_scal = (tuple(hiv['aggregators'].split()),
+                      tuple(hiv['scalers'].split()))
+    z_aggs, z_scal = (tuple(zinc['aggregators'].split()),
+                      tuple(zinc['scalers'].split()))
+    return [
+        ('hiv_simple', 'powerlaw', hw, 1, lambda d, a: PNASimpleLayerSparse(
+            hw, hw, h_aggs, h_scal, a, batch_norm=hiv['batch_norm'],
+            residual=hiv['residual'],
+            posttrans_layers=hiv['posttrans_layers'], device=d)),
+        ('zinc_towers', 'powerlaw', zw, zinc['towers'],
+         lambda d, a: PNALayerSparse(
+             zw, zw, z_aggs, z_scal, a, towers=zinc['towers'],
+             divide_input=zinc['divide_input_first'],
+             graph_norm=zinc['graph_norm'], batch_norm=zinc['batch_norm'],
+             residual=zinc['residual'],
+             pretrans_layers=zinc['pretrans_layers'],
+             posttrans_layers=zinc['posttrans_layers'], device=d)),
+        ('pyg_simple', 'powerlaw', pw, 1, lambda d, a: PNAConvSimplePyG(
+            pw, pw, PYG_AGGS, PYG_SCALERS, a, device=d)),
+        ('pyg_towers', 'powerlaw', pw, 1, lambda d, a: PNAConvPyG(
+            pw, pw, PYG_AGGS, PYG_SCALERS, a, towers=5, device=d)),
+        ('gcn', 'powerlaw', hw, 0,
+         lambda d, a: GCNLayerSparse(hw, hw, device=d)),
+        ('gat', 'powerlaw', hw, 0,
+         lambda d, a: GATLayerSparse(hw, hw, nheads=1, device=d)),
+        ('gin', 'powerlaw', hw, 0,
+         lambda d, a: GINLayerSparse(hw, hw, device=d)),
+        ('segment_bank', 'hub', hw, 0,
+         lambda d, a: SegmentBankCase(hw, h_scal, a).to(d)),
+    ]
+
+
+def sp_graphs(num_nodes, num_edges, cfg):
+    """The large-graph CLI's power-law graph at this size (its seed and
+    exponent) and its twin with a fifth of the edges sent to node 0, each
+    one receiver-sorted graph with ``edge_ptr`` and no edge features, with
+    the avg_d of its in-degrees."""
+    send, recv = powerlaw_graph(num_nodes, num_edges, seed=cfg.seed,
+                                exponent=cfg.exponent)
+    hub = recv.copy()
+    hub[:num_edges // 5] = 0
+    out = {}
+    for kind, r in (('powerlaw', recv), ('hub', hub)):
+        g = batch_graphs([dict(node_feats=np.zeros((num_nodes, 1),
+                                                   np.float32),
+                               senders=send, receivers=r)], with_snorm=True)
+        deg = np.bincount(r, minlength=num_nodes).astype(np.float64)
+        out[kind] = (g, {'lin': float(deg.mean()),
+                         'log': float(np.log(deg + 1).mean())})
+    return out
+
+
+def sp_step(model, g, x):
+    """One forward and backward of the layer: loss sum(sin(out)) over the
+    real nodes."""
+    model.zero_grad(set_to_none=True)
+    x.grad = None
+    out = model(g, x)
+    loss = (torch.sin(out) * g.node_mask[:, None]).sum()
+    loss.backward()
+    return loss
+
+
+def sp_hold(name, make, width, graph, avg_d, dev):
+    """The layer on the card against the same weights on the CPU, on the
+    check graph: the loss within LOSS_RTOL and every gradient (weights and
+    input) within GRAD_TOL of its scale, as phase 4 holds a step.  Returns
+    the card's layer (its weights go on to the timed steps) and the worst
+    gradient error."""
+    h = torch.randn(graph.n_node_pad, width,
+                    generator=torch.Generator().manual_seed(SP_SEED))
+    models, losses, dh = {}, {}, {}
+    for where in ('cpu', 'card'):
+        device = dev if where == 'card' else 'cpu'
+        m = make(device, avg_d)
+        if where == 'cpu':
+            state = {k: v.clone() for k, v in m.state_dict().items()}
+        m.load_state_dict(state)
+        m.train()
+        x = h.to(device).detach().requires_grad_(True)
+        losses[where] = float(sp_step(m, graph.to(device), x).detach())
+        models[where], dh[where] = m, x.grad.cpu()
+    worst = hold_step(f"sparse_powerlaw {name}", models['card'],
+                      models['cpu'], losses)
+    r = float((dh['card'] - dh['cpu']).abs().max()) / float(
+        dh['cpu'].abs().max())
+    if not r <= GRAD_TOL:
+        raise AssertionError(f"sparse_powerlaw {name}: input gradient "
+                             f"{r:.3g}")
+    return models['card'], losses, max(worst, r)
+
+
+def sp_time(name, model, width, k_per_step, graph, dev):
+    """The layer's forward and backward on the full graph: the median of
+    SP_TIMED steps after SP_WARM, each ending in torch.cuda.synchronize();
+    the launches of those steps (k_per_step K1 and K2 each, no K3/K4), the
+    peak memory, and one profiled step: device ms, the top kernels and the
+    index_put-family kernels and host ops, of which there must be none."""
+    g = graph.to(dev)
+    x = torch.randn(g.n_node_pad, width,
+                    generator=torch.Generator().manual_seed(SP_SEED + 1)
+                    ).to(dev).requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fk.reset_launch_counts()
+    times = []
+    for _ in range(SP_WARM + SP_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = sp_step(model, g, x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = fk.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    loss = float(loss.detach())
+    if not math.isfinite(loss):
+        raise AssertionError(f"sparse_powerlaw {name}: loss {loss}")
+    steps = SP_WARM + SP_TIMED
+    want = {k: k_per_step * steps if k in BACKEND_KERNELS['csr'] else 0
+            for k in SOURCES}
+    if counts != want:
+        raise AssertionError(f"sparse_powerlaw {name}: launches {counts} "
+                             f"in {steps} steps, expected {want}")
+    with profiling.trace() as prof:
+        sp_step(model, g, x)
+        torch.cuda.synchronize()
+    rows, host = profiling.op_times(prof, 1)
+    device_ms = sum(r[1] for r in rows)
+    put_rows, put_host = ([r for r in x if any(k in r[0]
+                                               for k in INDEX_PUT_NAMES)]
+                          for x in (rows, host))
+    put_ms = sum(r[1] for r in put_rows)
+    step_ms = statistics.median(times[SP_WARM:]) * 1e3
+    r = dict(step_ms=step_ms, device_ms=device_ms, busy=device_ms / step_ms,
+             index_put_kernels=sum(r[2] for r in put_rows),
+             index_put_ms=put_ms, index_put_share=put_ms / device_ms,
+             peak_mib=peak, launches_per_step=k_per_step,
+             top=[(k[:70], ms, c) for k, ms, c in rows[:5]])
+    log(f"sparse_powerlaw[{name}] {int(g.edge_mask.sum())} edges, max "
+        f"in-degree {g.max_in_degree}, max out-degree "
+        f"{int(g.out_degrees().max())}: median step {step_ms:.3f} ms "
+        f"(steps {SP_WARM + 1}..{steps}, min {min(times[SP_WARM:]) * 1e3:.3f},"
+        f" max {max(times[SP_WARM:]) * 1e3:.3f}); device {device_ms:.3f} ms "
+        f"per step (busy {r['busy']:.3f}); index_put-family kernels "
+        f"{r['index_put_kernels']} ({put_ms:.3f} ms, share "
+        f"{r['index_put_share']:.3f}); peak {peak:.1f} MiB; launches "
+        f"{counts} = {k_per_step} K1 + {k_per_step} K2 x {steps} steps")
+    for k, ms, c in rows[:5]:
+        log(f"  sparse_powerlaw[{name}]   {ms:9.4f} ms "
+            f"{100 * ms / device_ms:5.1f}%  x{c}  {k[:90]}")
+    if put_rows or put_host:
+        raise AssertionError(
+            f"sparse_powerlaw {name}: index_put in the step: "
+            f"{[(k[:60], c) for k, _, c in put_rows + put_host]}")
+    return r, counts
+
+
+def sparse_powerlaw_phase(dev, card):
+    """The edge-list layers (``sp_cases``) at their configs' widths on the
+    large-graph CLI's graph (100,000 nodes, 1,000,000 edges, a sender of
+    about 380,000 edges) and on its receiver-hub twin: each held card vs
+    CPU on the check graph (SP_FULL_HOLD on the full one too), then timed
+    on the full one."""
+    t0 = time.perf_counter()
+    cfg = LargeGraphConfig()
+    full = sp_graphs(cfg.num_nodes, cfg.num_edges, cfg)
+    check = sp_graphs(SP_CHECK_NODES, SP_CHECK_EDGES, cfg)
+    log(f"sparse_powerlaw: graphs built in {time.perf_counter() - t0:.1f} s"
+        f"; the full graph's largest out-degree "
+        f"{int(full['powerlaw'][0].out_degrees().max())}, the hub twin's "
+        f"largest in-degree {full['hub'][0].max_in_degree}")
+    res, launches = {}, {}
+    for name, kind, width, k_per_step, make in sp_cases():
+        graph, avg_d = full[kind]
+        held = {}
+        for size, g in (('check', check[kind][0]), ('full', graph)):
+            if size == 'full' and name not in SP_FULL_HOLD:
+                continue
+            t1 = time.perf_counter()
+            model, losses, worst = sp_hold(name, make, width, g, avg_d, dev)
+            held[size] = dict(loss=losses, worst_grad=worst)
+            log(f"sparse_powerlaw[{name}] card vs CPU on the {kind} {size} "
+                f"graph ({int(g.edge_mask.sum())} edges): loss "
+                f"{losses['card']:.6f} vs {losses['cpu']:.6f}, worst "
+                f"gradient error of its scale {worst:.3g} (tolerance "
+                f"{GRAD_TOL}), {time.perf_counter() - t1:.1f} s")
+        r, counts = sp_time(name, model, width, k_per_step, graph, dev)
+        r.update(graph=kind, held=held)
+        res[name] = r
+        launches[name] = counts
+        del model
+    res['seconds'] = time.perf_counter() - t0
+    log(f"sparse_powerlaw: phase took {res['seconds']:.1f} s on {card}")
+    return res, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2501,7 +2783,7 @@ def bench_variants():
 
 
 def bench_phase(dev, card):
-    """Phase 14 of the module docstring."""
+    """Phase 15 of the module docstring."""
     t0 = time.perf_counter()
     res, parts = {}, {}
     for part, fn in (('defaults', bench_defaults),
@@ -2621,6 +2903,7 @@ def main():
     resume_worst = resume_phase(dev)
     multitask = multitask_phase(dev, card)
     largegraph, lk = largegraph_phase(dev, card)
+    sparse_pl, sparse_launches = sparse_powerlaw_phase(dev, card)
     bench_res = bench_phase(dev, card)
 
     kernels = []
@@ -2645,6 +2928,8 @@ def main():
             **lk["shape"])
         if name in pk:
             row["pipeline_shapes"] = pk[name]
+        row["sparse_powerlaw_launches"] = {
+            case: c[name] for case, c in sparse_launches.items()}
         row["bench_launches"] = bench_res["defaults_launches"][name]
         row["bench_launches_per_step"] = {
             label: r["launches_per_step"][name]
@@ -2658,6 +2943,7 @@ def main():
                     "resume_worst_rel_diff": resume_worst,
                     "routing": routing, "multitask": multitask,
                     "layouts": layouts, "largegraph": largegraph,
+                    "sparse_powerlaw": sparse_pl,
                     "bench": {k: v for k, v in bench_res.items()
                               if k not in ("defaults", "variants")}},
                    default=str))

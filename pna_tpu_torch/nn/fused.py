@@ -92,6 +92,7 @@ from pna_tpu_torch.nn.sparse import (MaskedBatchNorm, aggregate_bank,
 from pna_tpu_torch.ops import (bucketed, csr_bank, csr_fused, fused_vjp,
                                partial_stats)
 from pna_tpu_torch.ops.scalers import scaler_weights
+from pna_tpu_torch.ops.segment import gather_rows
 from pna_tpu_torch.parallel import tower_tp
 
 KERNELS = ('auto', 'csr', 'csr_fused', 'bucketed', 'ell', 'generic')
@@ -194,16 +195,6 @@ def _ein_shared(x, k, cdt=torch.float32):
     T, fi, fo = k.shape
     kb = _round(k.permute(1, 0, 2).reshape(fi, T * fo), cdt)
     return (_round(x, cdt) @ kb).reshape(x.shape[:-1] + (T, fo))
-
-
-def _rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """``x[index]`` as ``index_select``, whose backward adds the rows'
-    gradients with ``index_add_``: the backward of ``x[index]``
-    (``index_put_`` with accumulate) sorts the index and adds each row's
-    duplicates one after another, which a power-law sender of 380,000 edges
-    turns into most of a step on the card (and, split over threads, into
-    sums of varying order on the CPU)."""
-    return torch.index_select(x, 0, index.long())
 
 
 def _mlp_dims(in_size, hidden, out, layers):
@@ -388,13 +379,15 @@ class PNALayerFused(nn.Module):
             # local partial while the exchange is in flight, then boundary
             halo, s_l, r_l, m_l, s_b, r_b, m_b = overlap[:7]
             e_l, e_b = overlap[7:] if self.edge_features else (None, None)
-            msg_l = pretrans_edges(_rows(hb, s_l), _rows(hb, r_l), e_l)
+            msg_l = pretrans_edges(gather_rows(hb, s_l),
+                                   gather_rows(hb, r_l), e_l)
             sk = partial_stats.partial_sketch(
                 msg_l.reshape(-1, T * Ft), r_l, N, m_l)
             if hasattr(halo, 'wait'):
                 halo = halo.wait()
             halo = self._tower_input(halo.to(cdt))
-            msg_b = pretrans_edges(_rows(halo, s_b), _rows(hb, r_b), e_b)
+            msg_b = pretrans_edges(gather_rows(halo, s_b),
+                                   gather_rows(hb, r_b), e_b)
             sk = partial_stats.combine(sk, partial_stats.partial_sketch(
                 msg_b.reshape(-1, T * Ft), r_b, N, m_b))
             Z = partial_stats.finalize_bank(sk, self.aggregators)
@@ -419,12 +412,12 @@ class PNALayerFused(nn.Module):
                                          self.aggregators)  # [N, A, T*Ft]
             deg = layout.deg
         else:
-            src = _rows(src_rows, graph.senders)
+            src = gather_rows(src_rows, graph.senders)
             if graph.bucket_spec is not None:
                 # the receiver gather is a broadcast in the bucketed layout
                 dst = bucketed.expand_to_edges(hb, graph.bucket_spec)
             else:
-                dst = _rows(hb, graph.receivers)
+                dst = gather_rows(hb, graph.receivers)
             msg = pretrans_edges(src, dst,
                                  e if self.edge_features else None)
             if backend != 'generic':

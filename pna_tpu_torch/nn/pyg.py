@@ -41,6 +41,7 @@ from pna_tpu_torch.nn.sparse import MaskedBatchNorm, node_bank
 from pna_tpu_torch.ops import csr_bank
 from pna_tpu_torch.ops.readout import readout
 from pna_tpu_torch.ops.scalers import SCALERS
+from pna_tpu_torch.ops.segment import gather_rows
 
 
 def _torch_dense(in_size: int, out_size: int, gen) -> nn.Linear:
@@ -130,7 +131,8 @@ class PNAConvPyG(nn.Module):
         N, T, fi = x.shape[0], self.towers, self.f_in
         xt = (x.reshape(N, T, fi) if self.divide_input
               else x[:, None, :].expand(N, T, fi))
-        parts = [xt[graph.receivers], xt[graph.senders]]    # receiver first
+        parts = [gather_rows(xt, graph.receivers),         # receiver first
+                 gather_rows(xt, graph.senders)]
         if self.edge_dim is not None:
             e = self.edge_encoder(edge_attr)
             parts.append(e[:, None, :].expand(e.shape[0], T, fi))
@@ -175,8 +177,8 @@ class PNAConvSimplePyG(nn.Module):
         """x [N, in_channels] -> [N, out_channels]."""
         if layout is None:
             layout = csr_bank.layout_from_graph(graph)
-        o = _pyg_aggregate(graph, x[graph.senders], layout, self.aggregators,
-                           self.scalers, self.avg_deg)
+        o = _pyg_aggregate(graph, gather_rows(x, graph.senders), layout,
+                           self.aggregators, self.scalers, self.avg_deg)
         for i in range(self.post_layers):
             if i > 0:
                 o = F.relu(o)

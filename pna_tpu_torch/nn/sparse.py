@@ -221,7 +221,8 @@ class PNATowerSparse(nn.Module):
                 layout: Optional[csr_bank.CSRLayout] = None) -> torch.Tensor:
         """h [N, in_dim], e [E, edge_dim] -> [N, out_dim]."""
         extra = [e] if self.edge_features else []
-        msg = self.pretrans(torch.cat([h[graph.senders], h[graph.receivers]]
+        msg = self.pretrans(torch.cat([seg.gather_rows(h, graph.senders),
+                                       seg.gather_rows(h, graph.receivers)]
                                       + extra, dim=-1))
         self_msg = None
         if 'identity' in self.aggregators:
@@ -324,8 +325,9 @@ class PNASimpleLayerSparse(nn.Module):
     def forward(self, graph: Graph, h: torch.Tensor,
                 layout: Optional[csr_bank.CSRLayout] = None) -> torch.Tensor:
         """h [N, in_dim] -> [N, out_dim]."""
-        agg = aggregate_bank(graph, h[graph.senders], self.aggregators,
-                             self.scalers, self.avg_d, layout=layout)
+        agg = aggregate_bank(graph, seg.gather_rows(h, graph.senders),
+                             self.aggregators, self.scalers, self.avg_d,
+                             layout=layout)
         out = self.posttrans(agg)
         if self.batchnorm_h is not None:
             out = self.batchnorm_h(out, graph.node_mask)
@@ -356,8 +358,9 @@ class GCNLayerSparse(nn.Module):
     def forward(self, graph: Graph, h: torch.Tensor) -> torch.Tensor:
         xw = self.linear(h)
         r = torch.rsqrt(graph.in_degrees(xw.dtype) + 1.0)
-        w = r[graph.senders] * r[graph.receivers]
-        out = seg.segment_sum(xw[graph.senders] * w[:, None],
+        w = (seg.gather_rows(r, graph.senders)
+             * seg.gather_rows(r, graph.receivers))
+        out = seg.segment_sum(seg.gather_rows(xw, graph.senders) * w[:, None],
                               graph.receivers, graph.n_node_pad,
                               graph.edge_mask)
         out = out + xw * (r * r)[:, None]
@@ -398,14 +401,15 @@ class GATLayerSparse(nn.Module):
             f_head = W.shape[1]
             hw = h @ W
             logits = F.leaky_relu(
-                (hw @ a[:f_head, 0])[graph.receivers]
-                + (hw @ a[f_head:, 0])[graph.senders],
+                seg.gather_rows(hw @ a[:f_head, 0], graph.receivers)
+                + seg.gather_rows(hw @ a[f_head:, 0], graph.senders),
                 negative_slope=self.alpha)
             att = seg.segment_softmax_weights(
                 logits[:, None], graph.receivers, graph.n_node_pad,
                 graph.edge_mask)
-            out = seg.segment_sum(hw[graph.senders] * att, graph.receivers,
-                                  graph.n_node_pad, graph.edge_mask)
+            out = seg.segment_sum(seg.gather_rows(hw, graph.senders) * att,
+                                  graph.receivers, graph.n_node_pad,
+                                  graph.edge_mask)
             outs.append(F.elu(out) if self.activation else out)
         return torch.cat(outs, dim=-1)
 
@@ -429,6 +433,7 @@ class GINLayerSparse(nn.Module):
         self.to(device)
 
     def forward(self, graph: Graph, h: torch.Tensor) -> torch.Tensor:
-        nbr = seg.segment_sum(h[graph.senders], graph.receivers,
-                              graph.n_node_pad, graph.edge_mask)
+        nbr = seg.segment_sum(seg.gather_rows(h, graph.senders),
+                              graph.receivers, graph.n_node_pad,
+                              graph.edge_mask)
         return self.post_transformation(nbr + (1.0 + self.epsilon[0]) * h)

@@ -219,7 +219,8 @@ def seg_normalised_mean(ctx: SegmentCtx):
                                 dtype=ctx.msg.dtype)
     r = torch.rsqrt(torch.clamp(ctx.count, min=1e-30))
     r_out = torch.rsqrt(torch.clamp(out_deg, min=1e-30))
-    w = r[ctx.receivers] * r_out[ctx.senders]
+    w = seg.gather_rows(r, ctx.receivers) * seg.gather_rows(r_out,
+                                                            ctx.senders)
     w = w.reshape(w.shape + (1,) * (ctx.msg.ndim - 1))
     return seg.segment_sum(ctx.msg * w, ctx.receivers, ctx.num_nodes,
                            ctx.mask)

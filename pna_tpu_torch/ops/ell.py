@@ -9,8 +9,8 @@ shares: the degree, the count clamped to 1 and the mean.  The aggregators of
 (``ops/aggregators.py``): EPS inside the roots, a relu-clamped variance, an
 empty row gives 0.  Max and min take ``torch.amax``/``torch.amin``, whose
 gradient splits evenly among tied entries, as JAX's does.  Autograd runs
-through the gather (``index_select``), whose backward adds each slot's
-gradient into its edge (``index_add_``).
+through the gather (``segment.gather_rows``), whose backward adds each
+slot's gradient into its edge (``index_add_``).
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
+
+from pna_tpu_torch.ops.segment import gather_rows
 
 EPS = 1e-5
 
@@ -40,12 +42,11 @@ class EllCtx:
     def create(cls, msg, nbr_edge_ids, nbr_mask, self_msg=None,
                senders=None, out_deg=None) -> "EllCtx":
         m = nbr_mask[..., None].to(msg.dtype)
-        # index_select, not msg[nbr_edge_ids]: the latter's backward
-        # (index_put_ with accumulate) adds the duplicates of one index one
-        # after another, and every padded slot repeats edge 0 (the flagship
-        # step on 'generic' over the ELL table: 566.9 ms of device time on
-        # an H100 before, 22.2 ms after)
-        g = torch.index_select(msg, 0, nbr_edge_ids.reshape(-1)).reshape(
+        # every padded slot repeats edge 0, so x[index]'s backward would add
+        # those duplicates one after another (the flagship step on 'generic'
+        # over the ELL table: 566.9 ms of device time on an H100 before,
+        # 22.2 ms after)
+        g = gather_rows(msg, nbr_edge_ids.reshape(-1)).reshape(
             nbr_edge_ids.shape + msg.shape[1:]) * m
         raw_cnt = torch.sum(m, dim=1)
         cnt = torch.clamp(raw_cnt, min=1.0)

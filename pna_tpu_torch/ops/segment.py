@@ -4,8 +4,9 @@ Counterpart of ``pna_tpu/ops/segment.py`` (sum, count, mean, max, min, var,
 std, softmax weights, moments), written with ``index_add_`` and
 ``scatter_reduce``.  Empty segments give 0; ``mask`` drops rows; EPS sits
 inside the sqrt of std, which relu-clamps the variance (``segment_var``
-clamps unless told not to, as PyG's var does not).  These functions are the
-plain versions the CSR kernels are held against
+clamps unless told not to, as PyG's var does not).  ``gather_rows`` is the
+port's row gather: every gather that autograd tracks goes through it.
+These functions are the plain versions the CSR kernels are held against
 (``pna_tpu_torch/ops/csr_kernels.py``).
 """
 
@@ -14,6 +15,16 @@ from __future__ import annotations
 import torch
 
 EPS = 1e-5
+
+
+def gather_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``x[index]`` as ``index_select``, whose backward adds the rows'
+    gradients with ``index_add_``: the backward of ``x[index]``
+    (``index_put_`` with accumulate) sorts the index and adds each row's
+    duplicates one after another, which a power-law sender of 380,000 edges
+    turns into most of a step on the card (and, split over threads, into
+    sums of varying order on the CPU)."""
+    return torch.index_select(x, 0, index.long())
 
 
 def _apply_mask(data, mask, fill):
@@ -91,12 +102,12 @@ def segment_softmax_weights(logits, segment_ids, num_segments, mask=None):
     each segment's max subtracted first (the JAX ``stable=True`` form; 0 for
     an empty segment, so its masked rows stay finite); masked rows weigh
     0."""
-    logits = logits - segment_max(logits, segment_ids, num_segments,
-                                  mask)[segment_ids]
+    logits = logits - gather_rows(
+        segment_max(logits, segment_ids, num_segments, mask), segment_ids)
     ex = _apply_mask(torch.exp(logits), mask, 0.0)
     denom = segment_sum(ex, segment_ids, num_segments)
     denom = torch.clamp(denom, min=torch.finfo(ex.dtype).tiny)
-    return ex / denom[segment_ids]
+    return ex / gather_rows(denom, segment_ids)
 
 
 def segment_moment(data, segment_ids, num_segments, n: int, mask=None,
@@ -107,6 +118,6 @@ def segment_moment(data, segment_ids, num_segments, n: int, mask=None,
         count = segment_count(segment_ids, num_segments, mask,
                               dtype=data.dtype)
     mean = segment_mean(data, segment_ids, num_segments, mask, count)
-    centered = data - mean[segment_ids]
+    centered = data - gather_rows(mean, segment_ids)
     m_n = segment_mean(centered ** n, segment_ids, num_segments, mask, count)
     return torch.sign(m_n) * torch.pow(torch.abs(m_n) + EPS, 1.0 / n)

@@ -22,8 +22,11 @@ bank's routing on the card (K1/K2 for mean/sum/max/min/var/std, plain torch
 for the other aggregators) against the CPU's segment form, and the bank on
 a node no edge reaches.  The multitask tests hold the dense GNN (PNA, MPNN,
 GCN, GAT, GIN at the recipe's structure) and the sparse GCN/GAT/GIN layers
-on the card against the CPU, with no CSR kernel launched.  The last test runs
-the bench twin's ``csr`` runner (``pna_tpu_torch/bench.py``)."""
+on the card against the CPU, with no CSR kernel launched.  A test runs the
+bench twin's ``csr`` runner (``pna_tpu_torch/bench.py``).  The last holds
+the HIV config's simple layer on a 100,000-edge power-law graph and the
+segment form of the bank on its receiver-hub twin card against CPU, with
+no ``index_put`` kernel (``x[index]``'s backward) in a profiled step."""
 
 import numpy as np
 import pytest
@@ -1110,3 +1113,36 @@ def test_cuda_bench_runner_csr():
     assert 0 < rep['busy'] <= 1.5    # profiled steps run slower than timed
     if torch.cuda.get_device_name(0) in bench.PEAK_FLOPS:
         assert 0 < rep['mfu'] < 1
+
+
+# ---------------------------------------------------------------------------
+# the sparse path's gathers on a power-law graph (index_select, not x[index])
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ['hiv_simple', 'segment_bank'])
+def test_cuda_powerlaw_gathers_match_cpu_without_index_put(case):
+    """chip_smoke.py's sparse_powerlaw phase on its 100,000-edge check graph:
+    the HIV config's simple layer on the power-law graph (sender gathers of
+    a 38,000-edge hub) and the segment form's softmax, softmin and moment3
+    on its receiver-hub twin (receiver gathers of a 20,000-edge hub).  Card
+    against CPU at phase 4's limits (``sp_hold``: loss rtol 1e-4, every
+    gradient within 2e-3 of its scale), exact K1/K2 launches and no
+    index_put-family kernel or host op (x[index]'s backward) in a profiled
+    card step (``sp_time`` raises otherwise)."""
+    import chip_smoke as cs
+    from pna_tpu_torch.train.largegraph import LargeGraphConfig
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name, kind, width, k, make = next(c for c in cs.sp_cases()
+                                      if c[0] == case)
+    graph, avg_d = cs.sp_graphs(cs.SP_CHECK_NODES, cs.SP_CHECK_EDGES,
+                                LargeGraphConfig())[kind]
+    model, _, worst = cs.sp_hold(name, make, width, graph, avg_d, 'cuda')
+    assert worst <= cs.GRAD_TOL
+    r, counts = cs.sp_time(name, model, width, k, graph, 'cuda')
+    assert r['device_ms'] > 0, "the profile recorded no device time"
+    assert r['index_put_kernels'] == 0
+    steps = cs.SP_WARM + cs.SP_TIMED
+    assert counts == {'csr_moment_sketch': k * steps, 'csr_dmsg': k * steps,
+                      'csr_pretrans_sketch': 0, 'csr_pretrans_dmsg': 0}
