@@ -24,12 +24,16 @@ Phases (any failure raises, so the script exits non-zero):
    same bits; then the row sum ``sorted_row_sum`` (``ops/rowsum.py``, the
    port's deterministic scatter-add: every gather's backward and every
    float segment sum on the card) against its plain version and against
-   float64 ``index_add_``, two launches bit-equal, at the flagship senders
-   and sorted receivers (no perm), bfloat16 in and out, F = 1, 400, 500, an
-   index that leaves half the rows empty, the large-graph senders (a
-   383,653-edge sender) at F = 64 and 70 and the 200,007-edge receiver hub;
-   three of them timed beside the byte bound, ``index_add_`` (the library
-   call of the same function) and the index's sort;
+   float64 ``index_add_``, two launches bit-equal, at every shape of the
+   flagship step (the senders and the sorted receivers, no perm, at F = 70,
+   the atom and bond lookups, the readout, F = 1), bfloat16 in and out, F =
+   400, 500, an index that leaves half the rows empty, the large-graph
+   senders (a 383,653-edge sender) at F = 64 and 70 and the 200,007-edge
+   receiver hub; the nine shapes of
+   ``ops/timing.py::row_sum_cases`` timed after a dirty and a clean L2
+   flush beside the byte bound (the keys counted), the plain version,
+   ``index_add_`` (the library call of the same function) and the index's
+   sort;
 4. train, the flagship ZINC step (PNANetMolecules, L=4, hidden 70, out 60,
    edge_dim 50, towers 5, 1024 synthetic graphs) on one set of weights, in
    four configurations: float32 on ``kernel='csr'`` (K1/K2) and on
@@ -244,8 +248,10 @@ from pna_tpu_torch.parallel.partition import (halo_exchange,
                                               powerlaw_graph,
                                               sort_partition_edges)
 from pna_tpu_torch.ops.segment import gather_rows
-from pna_tpu_torch.ops.timing import (card_line, flush_buffer, hub_case,
-                                      make_messages, time_cuda)
+from pna_tpu_torch.ops import timing
+from pna_tpu_torch.ops.timing import (bound_ms, card_line, flush_buffer,
+                                      hub_case, make_messages, nbytes,
+                                      time_cuda)
 from pna_tpu_torch.train.engine import MultitaskTrainer
 from pna_tpu_torch.train.largegraph import (LargeGraphConfig, build_problem,
                                             make_node_train_step)
@@ -254,12 +260,7 @@ from pna_tpu_torch.train import step as twin_step
 from pna_tpu_torch.train.step import loss_and_grads, make_optimizer, train_step
 from pna_tpu_torch.utils import profiling
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and float32
-# operations/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-
-FLAGSHIP = dict(hidden_dim=70, out_dim=60, edge_dim=50, edge_feat=True,
+FLAGSHIP = dict(**timing.FLAGSHIP_WIDTHS, edge_feat=True,
                 divide_input_first=True, divide_input_last=True, towers=5,
                 n_layers=4, aggregators=('mean', 'max', 'min', 'std'),
                 scalers=('identity', 'amplification', 'attenuation'),
@@ -397,16 +398,6 @@ MT_F32_TOL, MT_F32_FACTOR = GRAD_TOL, 3.0
 
 def log(*args):
     print(*args, flush=True)
-
-
-def bound_ms(bytes_moved, ops):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def nbytes(x):
-    return 0 if x is None else x.numel() * x.element_size()
 
 
 def check_sketch(kern, plain, msg, ptr, what="K1", exact=False):
@@ -883,19 +874,19 @@ BF16_ROUND = 2.0 ** -8
 def rowsum_case(name, src, index, n, flush, ptr=None, out_dtype=None,
                 timed=False):
     """The row sum of ``src`` by ``index`` into ``n`` rows (``ptr``: the
-    row pointers of an index that is sorted; no perm), on the card against
-    its plain version within SUM_RTOL of the summed magnitudes (plus one
+    row pointers of an index that is sorted; no perm) over the layout's
+    keys (the index itself where it is sorted), on the card against its
+    plain version within SUM_RTOL of the summed magnitudes (plus one
     bfloat16 rounding for a bfloat16 output; the plain version adds with
     atomics in its last stages) and against index_add_ in float64 alike;
-    two launches give the same bits.  ``timed``: the kernel, the plain
-    version, the library call that computes the same function
-    (``index_add_`` into zeros) and the index's sort, each with
-    ``time_cuda``, beside the byte bound."""
-    perm, p = ((None, ptr) if ptr is not None
-               else rowsum.index_layout(index, n))
+    two launches give the same bits.
+    ``timed``: ``ops/timing.py::time_row_sum_case`` (the kernel after a
+    dirty and a clean flush, the byte bound with the keys, the plain
+    version, index_add_ and the index's sort)."""
+    perm, p, keys = timing.row_sum_layout(index, n, ptr)
     out_dtype = src.dtype if out_dtype is None else out_dtype
-    got = rowsum.sorted_row_sum(src, perm, p, out_dtype)
-    again = rowsum.sorted_row_sum(src, perm, p, out_dtype)
+    got = rowsum.sorted_row_sum(src, perm, p, keys, out_dtype)
+    again = rowsum.sorted_row_sum(src, perm, p, keys, out_dtype)
     plain = rowsum.sorted_row_sum_plain(src, perm, p, out_dtype)
     idx = index.long()
     f = src.shape[1]
@@ -921,90 +912,68 @@ def rowsum_case(name, src, index, n, flush, ptr=None, out_dtype=None,
              out=str(out_dtype), perm=perm is not None,
              max_rows_per_node=int(deg.max()), empty_nodes=int((deg == 0).sum()))
     if timed:
-        bytes_moved = (nbytes(src) + nbytes(perm) + nbytes(p)
-                       + n * f * got.element_size())
-        r["bound"] = bound_ms(bytes_moved, src.numel())
-        r["ms"] = time_cuda(lambda: rowsum.sorted_row_sum(
-            src, perm, p, out_dtype), flush)
-        r["plain_ms"] = time_cuda(lambda: rowsum.sorted_row_sum_plain(
-            src, perm, p, out_dtype), flush)
-        r["library_ms"] = time_cuda(lambda: torch.zeros(
-            (n, f), dtype=src.dtype, device=src.device).index_add_(
-                0, idx, src), flush)
-        r["sort_ms"] = time_cuda(lambda: rowsum.sort_layout(index, n),
-                                 flush)
+        r.update(timing.time_row_sum_case(src, index, n, ptr, flush))
     log(f"kernels[row sum: {name}] E={src.shape[0]} N={n} F={f} "
         f"{src.dtype} -> {out_dtype}, perm {'yes' if perm is not None else 'none'}"
-        f", largest node {r['max_rows_per_node']} rows, {r['empty_nodes']} "
+        f", largest node "
+        f"{r['max_rows_per_node']} rows, {r['empty_nodes']} "
         f"empty: max err {r['err_plain']:.3g} (plain), {r['err_float64']:.3g}"
         " (float64); two launches equal" + (
-            f"; {r['ms']:.4f} ms (bound {r['bound'][0]:.4f}, plain "
-            f"{r['plain_ms']:.4f}, index_add_ {r['library_ms']:.4f}, sort "
+            f"; {r['ms']:.4f} ms, clean L2 {r['clean_ms']:.4f} (bound "
+            f"{r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, index_add_ "
+            f"{r['library_ms']:.4f}, clean {r['library_clean_ms']:.4f}, sort "
             f"{r['sort_ms']:.4f})" if timed else ""))
     return r
 
 
 def rowsum_phase(graph, dev, flush):
     """The row-sum kernel against its plain version at the shapes of its
-    paths: the flagship step's senders (E = 42,368, N = 19,792, F = 70) and
-    its sorted receivers with edge_ptr (perm None), bfloat16 in and out,
-    widths 1 (the GAT logits), 400 (towered PyG) and 500 (MNIST), an index
-    that leaves every other row empty; the large-graph CLI's senders (1M
-    edges into 100,000 nodes, a 383,653-edge sender) at F = 64 and 70, and
-    its receiver-hub twin (a node of in-degree 200,007, sorted: perm
-    None).  The flagship senders, the large-graph senders at F = 64 and the
-    receiver hub are timed."""
+    paths, each timed (``ops/timing.py::row_sum_cases``: the flagship
+    step's senders and sorted receivers at F = 70, its atom and bond
+    lookups and readout, F = 1; the large-graph CLI's senders, 1M edges
+    into 100,000 nodes with a 383,653-edge sender, at F = 64 and 70, and
+    its receiver-hub twin, a node of in-degree 200,007, sorted: perm None),
+    and, held only, bfloat16 in and out, widths 400 (towered PyG) and 500
+    (MNIST) and an index that leaves every other row empty."""
     gen = torch.Generator().manual_seed(12)
+    timed = timing.row_sum_cases(graph, dev, gen)
 
     def rnd(rows, f, dtype=torch.float32):
         return torch.randn(rows, f, generator=gen).to(dev, dtype)
 
     f = FLAGSHIP['hidden_dim']
     n, e = graph.n_node_pad, graph.n_edge_pad
-    snd, rcv = graph.senders.to(dev), graph.receivers.to(dev)
-    eptr = graph.edge_ptr.to(dev)
-    cfg = LargeGraphConfig()
-    send, recv = powerlaw_graph(cfg.num_nodes, cfg.num_edges, seed=cfg.seed,
-                                exponent=cfg.exponent)
-    hub = np.sort(np.where(np.arange(cfg.num_edges) < cfg.num_edges // 5, 0,
-                           recv))
-    hub_ptr = torch.from_numpy(np.searchsorted(
-        hub, np.arange(cfg.num_nodes + 1)).astype(np.int32)).to(dev)
-    lg_snd = torch.from_numpy(send).to(dev)
-    hub_rcv = torch.from_numpy(hub).to(dev)
+    snd = graph.senders.to(dev)
     bf = torch.bfloat16
-    cases = [
-        # name, src, index, rows, sorted index's ptr, out dtype, timed as
-        ("flagship senders", rnd(e, f), snd, n, None, None, ""),
-        ("flagship receivers, sorted", rnd(e, f), rcv, n, eptr, None, None),
-        ("flagship senders bf16", rnd(e, f, bf), snd, n, None, None, None),
+    cases = [(name, src, index, rows, ptr, None, True)
+             for name, (src, index, rows, ptr) in timed.items()]
+    cases += [
+        # name, src, index, rows, sorted index's ptr, out dtype, timed
+        ("flagship senders bf16", rnd(e, f, bf), snd, n, None, None, False),
         ("flagship senders bf16 -> f32", rnd(e, f, bf), snd, n, None,
-         torch.float32, None),
-        ("flagship senders F=1", rnd(e, 1), snd, n, None, None, None),
-        ("flagship senders F=400", rnd(e, 400), snd, n, None, None, None),
-        ("flagship senders F=500", rnd(e, 500), snd, n, None, None, None),
+         torch.float32, False),
+        ("flagship senders F=400", rnd(e, 400), snd, n, None, None, False),
+        ("flagship senders F=500", rnd(e, 500), snd, n, None, None, False),
         ("every other row empty", rnd(e, f), snd * 2, 2 * n, None, None,
-         None),
-        ("largegraph senders", rnd(cfg.num_edges, LG_HIDDEN), lg_snd,
-         cfg.num_nodes, None, None, "hub_"),
-        ("largegraph senders F=70", rnd(cfg.num_edges, f), lg_snd,
-         cfg.num_nodes, None, None, None),
-        ("receiver hub, sorted", rnd(cfg.num_edges, LG_HIDDEN), hub_rcv,
-         cfg.num_nodes, hub_ptr, None, "receiver_hub_"),
+         False),
     ]
     res = {"err": 0.0, "cases": {}}
-    for name, src, index, rows, ptr, out_dtype, timed in cases:
-        r = rowsum_case(name, src, index, rows, flush, ptr, out_dtype,
-                        timed is not None)
+    for name, src, index, rows, ptr, out_dtype, t in cases:
+        r = rowsum_case(name, src, index, rows, flush, ptr, out_dtype, t)
         res["err"] = max(res["err"], r["err_plain"])
         res["cases"][name] = r
-        if timed is not None:
-            res.update({timed + k: r[k] for k in
-                        ("ms", "plain_ms", "library_ms", "sort_ms")})
-            res[timed + "bound_ms"] = r["bound"][0]
-            if not timed:
-                res["bound"] = r["bound"]
-        del src
+    del cases, timed
+    # the kernels line: the flagship senders (the main path's first row
+    # sum), the large-graph senders (hub_) and the receiver hub
+    for prefix, name in (("", "flagship senders"),
+                         ("hub_", "largegraph senders"),
+                         ("receiver_hub_", "receiver hub, sorted")):
+        r = res["cases"][name]
+        res.update({prefix + k: r[k] for k in
+                    ("ms", "clean_ms", "plain_ms", "library_ms", "sort_ms",
+                     "bound_ms")})
+    r = res["cases"]["flagship senders"]
+    res["bound"] = (r["bound_ms"], r["bound_by"])
     if res["cases"]["largegraph senders"]["max_rows_per_node"] < 300_000:
         raise AssertionError("the large-graph senders lost their hub")
     return res

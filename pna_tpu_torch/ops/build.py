@@ -128,9 +128,10 @@ def load() -> ctypes.CDLL:
     lib.pna_pretrans_shared_bytes.restype = ctypes.c_longlong
     lib.pna_pretrans_shared_limit.argtypes = []
     lib.pna_pretrans_shared_limit.restype = ctypes.c_longlong
-    # src, the bfloat16 flag, perm, ptr, 3 sizes (E, N, F), out, its
-    # bfloat16 flag, the partials, the stream
-    lib.pna_sorted_row_sum.argtypes = [p, i, p, p, i, i, i, p, i, p, p]
+    # src, the bfloat16 flag, perm, the keys and their int64 flag, ptr, 3
+    # sizes (E, N, F), out, its bfloat16 flag, the partials, the stream
+    lib.pna_sorted_row_sum.argtypes = [p, i, p, p, i, p, i, i, i, p, i, p,
+                                       p]
     lib.pna_sorted_row_sum.restype = i
     lib.pna_sorted_row_sum_tile.argtypes = []
     lib.pna_sorted_row_sum_tile.restype = i

@@ -37,13 +37,19 @@ def _on_kernel(x: torch.Tensor) -> bool:
 def _row_sum(data, index, n, ptr=None):
     """out[k] = sum of data[i] over index[i] == k, [n, ...], by the kernel:
     over ``ptr`` where the caller knows ``index`` is sorted with those row
-    pointers, else over the index's kept layout."""
-    if ptr is not None and ptr.shape != (n + 1,):
+    pointers (within ``[ptr[0], ptr[n])``; the index is then its own keys),
+    else over the index's kept layout."""
+    if ptr is None:
+        perm, ptr, keys = rowsum.index_layout(index, n)
+    elif ptr.shape != (n + 1,):
         raise ValueError(f"row pointers {tuple(ptr.shape)} for {n} rows")
-    perm, ptr = (rowsum.index_layout(index, n) if ptr is None
-                 else (None, ptr.to(torch.int32)))
+    else:
+        perm, ptr, keys = None, ptr.to(torch.int32), index.reshape(-1)
+        if keys.dtype not in (torch.int32, torch.int64):
+            keys = keys.long()
+        keys = keys.contiguous()
     flat = data.reshape(data.shape[0], -1).contiguous()
-    return rowsum.sorted_row_sum(flat, perm, ptr).reshape(
+    return rowsum.sorted_row_sum(flat, perm, ptr, keys).reshape(
         (n,) + data.shape[1:])
 
 

@@ -1,7 +1,8 @@
 """Kernel timing on the card: the timer ``chip_smoke.py`` uses, the layouts
-it times on, and a command that times K1 and K2 alone.
+it times on, and commands that time K1 and K2 alone and the row sum alone.
 
     python -m pna_tpu_torch.ops.timing
+    python -m pna_tpu_torch.ops.timing --rowsum
 
 builds the kernels, times ``csr_moment_sketch`` (with and without tie counts)
 and ``csr_dmsg`` through their wrappers at the flagship ZINC step's shapes
@@ -17,6 +18,15 @@ one.  So the same file, copied over an earlier tree's
 times that tree's kernels: two trees are compared by running the command in
 each, in turns, on one card.  Times of different cards or calls do not
 compare.
+
+``--rowsum`` times the row sum (``ops/rowsum.py``) at every shape of the
+flagship step and at the large graph's (``row_sum_cases``), each after a
+dirty and after a clean flush, beside its byte bound, its plain version,
+``index_add_`` (the one library call of the same function) and the index's
+sort, and prints one JSON line.  It times the row sum as its paths call it
+(``ops/segment.py::_row_sum``, over the index's kept layout or a sorted
+index's row pointers), which every tree of the port has had since the row
+sum came, so it times an earlier tree's row sum the same way.
 """
 
 from __future__ import annotations
@@ -27,10 +37,18 @@ import statistics
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 SLEEP_CYCLES = 700_000       # about 0.4 ms of the card at 1.7 GHz
-FLAGSHIP_F = 70              # message width of every layer of the flagship
+# the flagship ZINC net's widths (chip_smoke.py's FLAGSHIP takes them): its
+# layers', its last layer's (the readout's) and its bond embedding's
+FLAGSHIP_WIDTHS = dict(hidden_dim=70, out_dim=60, edge_dim=50)
+FLAGSHIP_F = FLAGSHIP_WIDTHS["hidden_dim"]   # message width of every layer
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and float32
+# operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def card_line() -> str:
@@ -72,6 +90,18 @@ def time_cuda(fn, flush, reps=20, dirty=True):
         events.append((start, end))
         torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def bound_ms(bytes_moved, ops):
+    """The least time of a kernel that moves ``bytes_moved`` and does
+    ``ops`` float32 operations, and which of the two bounds it."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(x):
+    return 0 if x is None else x.numel() * x.element_size()
 
 
 def flush_buffer(dev):
@@ -154,11 +184,119 @@ def time_csr_kernels(dev) -> dict:
     return out
 
 
-def main():
+def row_sum_layout(index, n, ptr=None):
+    """(perm, ptr, keys) of the row sum of ``index`` into ``n`` rows, as
+    ``ops/segment.py::_row_sum`` passes them: over ``ptr`` for an index
+    that is sorted (perm None, the index its own keys), else over its kept
+    layout."""
+    from pna_tpu_torch.ops import rowsum
+    if ptr is not None:
+        return None, ptr, index
+    return tuple(rowsum.index_layout(index, n))
+
+
+def row_sum_cases(graph, dev, gen):
+    """The row sum's shapes on the flagship step (``graph``, the synthetic
+    ZINC batch: the senders' and the sorted receivers' gathers at F = 70,
+    the atom lookup of 19,792 rows into 28 types, the bond lookup of 42,368
+    rows into 4 at F = 50, the readout of 19,792 rows into 1,025 graph slots
+    at F = 60, and F = 1) and on the large graph (the CLI's 1,000,000 power-
+    law edges into 100,000 nodes, a 383,653-edge sender, at F = 64 and 70,
+    and the receiver hub: a fifth of the edges into node 0, sorted): name ->
+    (src, index, rows, ptr of a sorted index or None)."""
+    from pna_tpu_torch.data.molecules import NUM_ATOM_TYPE, NUM_BOND_TYPE
+    from pna_tpu_torch.parallel.partition import powerlaw_graph
+    from pna_tpu_torch.train.largegraph import LargeGraphConfig
+
+    def rnd(rows, f):
+        return torch.randn(rows, f, generator=gen).to(dev)
+
+    n, e = graph.n_node_pad, graph.n_edge_pad
+    snd, rcv = graph.senders.to(dev), graph.receivers.to(dev)
+    cfg = LargeGraphConfig()
+    send, recv = powerlaw_graph(cfg.num_nodes, cfg.num_edges, seed=cfg.seed,
+                                exponent=cfg.exponent)
+    hub = np.sort(np.where(np.arange(cfg.num_edges) < cfg.num_edges // 5, 0,
+                           recv))
+    hub_ptr = torch.from_numpy(np.searchsorted(
+        hub, np.arange(cfg.num_nodes + 1)).astype(np.int32)).to(dev)
+    lg_snd = torch.from_numpy(send).to(dev)
+    return {
+        "flagship senders": (rnd(e, FLAGSHIP_F), snd, n, None),
+        "flagship receivers, sorted": (rnd(e, FLAGSHIP_F), rcv, n,
+                                       graph.edge_ptr.to(dev)),
+        "atom lookup": (rnd(n, FLAGSHIP_F),
+                        graph.node_feats.squeeze(-1).to(dev), NUM_ATOM_TYPE,
+                        None),
+        "bond lookup": (rnd(e, FLAGSHIP_WIDTHS["edge_dim"]),
+                        graph.edge_feats.squeeze(-1).to(dev), NUM_BOND_TYPE,
+                        None),
+        "readout": (rnd(n, FLAGSHIP_WIDTHS["out_dim"]),
+                    graph.node_graph_ids.to(dev),
+                    graph.n_graph_pad, None),
+        "flagship senders F=1": (rnd(e, 1), snd, n, None),
+        "largegraph senders": (rnd(cfg.num_edges, cfg.hidden_dim), lg_snd,
+                               cfg.num_nodes, None),
+        "largegraph senders F=70": (rnd(cfg.num_edges, FLAGSHIP_F), lg_snd,
+                                    cfg.num_nodes, None),
+        "receiver hub, sorted": (rnd(cfg.num_edges, cfg.hidden_dim),
+                                 torch.from_numpy(hub).to(dev),
+                                 cfg.num_nodes, hub_ptr),
+    }
+
+
+def time_row_sum_case(src, index, n, ptr, flush) -> dict:
+    """The row sum of ``src`` by ``index`` into ``n`` rows, as its paths call
+    it (``ops/segment.py::_row_sum``), timed with ``time_cuda`` after a
+    dirty flush (``ms``, the records' way) and a clean one (``clean_ms``),
+    beside its bound (src, perm, the keys and out, each moved once: the
+    layout's int32 keys, or the sorted index itself), its plain version,
+    ``index_add_`` into zeros (both flushes) and the index's sort."""
+    from pna_tpu_torch.ops import rowsum, segment
+    perm, p = row_sum_layout(index, n, ptr)[:2]
+    f = src.shape[1]
+
+    def library():
+        return torch.zeros((n, f), dtype=src.dtype,
+                           device=src.device).index_add_(0, index, src)
+
+    def kernel():
+        return segment._row_sum(src, index, n, ptr)
+
+    keys_bytes = nbytes(index) if perm is None else index.numel() * 4
+    bound, by = bound_ms(nbytes(src) + nbytes(perm) + keys_bytes
+                         + n * f * src.element_size(), src.numel())
+    return dict(
+        rows=src.shape[0], nodes=n, f=f, perm=perm is not None,
+        bound_ms=bound, bound_by=by,
+        ms=time_cuda(kernel, flush),
+        clean_ms=time_cuda(kernel, flush, dirty=False),
+        plain_ms=time_cuda(lambda: rowsum.sorted_row_sum_plain(src, perm, p),
+                           flush),
+        library_ms=time_cuda(library, flush),
+        library_clean_ms=time_cuda(library, flush, dirty=False),
+        sort_ms=time_cuda(lambda: rowsum.sort_layout(index, n), flush))
+
+
+def time_row_sum(dev) -> dict:
+    """``time_row_sum_case`` at every shape of ``row_sum_cases``."""
+    from pna_tpu_torch.data.molecules import ZincDataset, collate_records
+    ds = ZincDataset.synthetic(n_train=1024, n_val=1, n_test=1, seed=0)
+    graph, _ = collate_records(ds.train, with_snorm=True)
+    flush = flush_buffer(dev)
+    cases = row_sum_cases(graph, dev, torch.Generator().manual_seed(12))
+    return {name: time_row_sum_case(*case, flush)
+            for name, case in cases.items()}
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("timing: no CUDA device", file=sys.stderr)
         sys.exit(1)
-    times = time_csr_kernels(torch.device("cuda"))
+    dev = torch.device("cuda")
+    times = (time_row_sum(dev) if argv == ["--rowsum"]
+             else time_csr_kernels(dev))
     print(json.dumps({"card": card_line(), **times}), flush=True)
 
 

@@ -14,9 +14,12 @@ plain PyTorch versions: max, min and tie counts equal, sums within 1e-5 of
 the summed magnitudes (another order), d_msg rtol 1e-5 / atol 1e-6 with pad
 rows exactly 0.  The row sum (``csrc/sorted_row_sum.cu``) must equal its
 plain version bit for bit: the plain version repeats its order of addition
-and the CPU's ``index_add_`` adds in index order.  What this cannot show (that nvcc accepts the sources, the
-real cp.async, times) is left to tests/test_torch_cuda.py and chip_smoke.py
-on a card.  Skips where there is no g++."""
+and the CPU's ``index_add_`` adds in index order.  For the row sum the stub
+also has an int ``atomicAdd``, ``__threadfence`` and ``__ldcg``; since
+blocks run one after another, the last block to arrive at a hub's counter is
+the last in order.  What this cannot show (that nvcc accepts the sources,
+the real cp.async, times) is left to tests/test_torch_cuda.py and
+chip_smoke.py on a card.  Skips where there is no g++."""
 
 import ctypes
 import os
@@ -58,6 +61,7 @@ struct dim3 {
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
       : x(x_), y(y_), z(z_) {}
 };
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return float4{x, y, z, w};
@@ -96,6 +100,11 @@ inline unsigned __float_as_uint(float f) {
   return u;
 }
 template <typename T> inline T __ldcs(const T* p) { return *p; }
+template <typename T> inline T __ldcg(const T* p) { return *p; }
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 template <typename T> inline void __stcs(T* p, T v) { *p = v; }
 
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
@@ -192,7 +201,8 @@ def lib(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pna_csr_moment_sketch.argtypes = [p] * 6 + [i] * 6 + [p] * 7 + [i, p]
     lib.pna_csr_dmsg.argtypes = [p] * 8 + [i] * 3 + [p, p]
-    lib.pna_sorted_row_sum.argtypes = [p, i, p, p, i, i, i, p, i, p, p]
+    lib.pna_sorted_row_sum.argtypes = [p, i, p, p, i, p, i, i, i, p, i, p,
+                                       p]
     return lib
 
 
@@ -335,12 +345,15 @@ def test_host_dmsg_nan_in_pad_rows_does_not_leak(lib):
     assert bool(torch.isfinite(d).all())
 
 
-def _row_sum(lib, src, perm, ptr, out_dtype):
+def _row_sum(lib, src, perm, ptr, keys, out_dtype):
     n, e, f = ptr.numel() - 1, src.shape[0], src.shape[1]
     out = torch.full((n, f), float("nan"), dtype=out_dtype)
-    part = torch.full((2, max(1, -(-e // rowsum.TILE)), f), float("nan"))
+    tiles = max(1, -(-e // rowsum.TILE))
+    part = torch.full((tiles * (2 * f + 5 + -(-f // rowsum.FEAT)),),
+                      float("nan"))
     rc = lib.pna_sorted_row_sum(
         src.data_ptr(), int(src.dtype == torch.bfloat16), ck._at(perm),
+        keys.data_ptr(), int(keys.dtype == torch.int64),
         ptr.data_ptr(), e, n, f, out.data_ptr(),
         int(out_dtype == torch.bfloat16), part.data_ptr(), None)
     assert rc == 0
@@ -352,20 +365,22 @@ ROW_SUM_CASES = {
     "hub_over_34_tiles": (8800, 40, 8, "hub"),       # merge runs of 2
     "empty_rows": (600, 500, 70, "unsorted"),        # more rows than edges
     "sorted_perm_none": (1000, 60, 1, "sorted"),
-    "two_feature_blocks": (900, 50, 130, "unsorted"),
+    "two_feature_blocks": (900, 50, 130, "unsorted"),  # strips of 32 and 1
     "ids_out_of_range": (700, 30, 12, "out_of_range"),
     "no_rows": (0, 20, 5, "unsorted"),
+    "width_1": (1500, 300, 1, "unsorted"),           # 32 rows a warp
+    "width_2": (1200, 200, 2, "unsorted"),           # 16 rows a warp
+    "width_50": (1100, 150, 50, "unsorted"),         # 25 lanes, 2 features
+    "width_64_hub": (2600, 90, 64, "hub"),           # 2 rows a warp, 10 tiles
+    "width_70": (1000, 120, 70, "sorted"),           # 35 lanes of 2
+    "gaps": (1300, 400, 3, "gaps"),   # empty before, after and in between
+    "padded_tail": (1200, 80, 6, "padded"),          # keys past ptr[N]
 }
 
 
-@pytest.mark.parametrize("case", list(ROW_SUM_CASES))
-def test_host_row_sum_equals_plain(lib, case):
-    """Every output row written (the output starts as NaN), float32 and
-    bfloat16 in, float32 and bfloat16 out, 16-byte rows and rows that start
-    4 bytes off (the scalar loads): the kernel's bits are the plain
-    version's."""
-    e, n, f, kind = ROW_SUM_CASES[case]
-    rng = np.random.RandomState(sorted(ROW_SUM_CASES).index(case))
+def _row_sum_index(kind, rng, e, n):
+    """The index of one case, and the row pointers to use where they are
+    not the layout's (the padded tail)."""
     idx = rng.randint(0, n, e)
     if kind == "hub":
         idx[rng.rand(e) < 0.95] = 7
@@ -373,16 +388,67 @@ def test_host_row_sum_equals_plain(lib, case):
         idx = np.sort(idx)
     elif kind == "out_of_range":
         idx[::5] = n + 3
+    elif kind == "gaps":            # rows 0-39, 60-299 and 320-399 empty
+        idx = np.where(rng.rand(e) < 0.5, rng.randint(40, 60, e),
+                       rng.randint(300, 320, e))
+    elif kind == "padded":          # a partition's part: sorted real edges,
+        real = e * 4 // 5           # then padding with id 0 past ptr[N]
+        idx = np.concatenate([np.sort(idx[:real]), np.zeros(e - real, int)])
+        return idx, torch.from_numpy(np.searchsorted(
+            idx[:real], np.arange(n + 1)).astype(np.int32))
+    return idx, None
+
+
+@pytest.mark.parametrize("case", list(ROW_SUM_CASES))
+def test_host_row_sum_equals_plain(lib, case):
+    """Every output row written (the output starts as NaN), float32 and
+    bfloat16 in, float32 and bfloat16 out, rows that start on the vector
+    width and rows that start 4 bytes off (the scalar loads), with the
+    layout's int32 keys and with int64 keys (the index itself where it is
+    sorted): the kernel's bits are the plain version's.  The widths take
+    every lane layout (F = 1, 2: 32 and 16 rows a warp; 64: 2; 50, 70: one
+    row of 2-feature lanes; 130: a block of 128 and one of 2), hubs span
+    tiles, empty rows lie before the first key, after the last and in long
+    gaps, and a sorted index with padding past ptr[N] (a partition's part)
+    keeps its padding out."""
+    e, n, f, kind = ROW_SUM_CASES[case]
+    rng = np.random.RandomState(sorted(ROW_SUM_CASES).index(case))
+    idx, ptr = _row_sum_index(kind, rng, e, n)
     src = torch.from_numpy(rng.randn(e, f).astype(np.float32) * 100)
     lay = rowsum.index_layout(torch.from_numpy(idx), n)
-    perm = None if kind == "sorted" else lay.perm
+    if kind in ("sorted", "padded"):
+        perm, keys = None, torch.from_numpy(idx)
+        ptr = lay.ptr if ptr is None else ptr
+    else:
+        perm, keys, ptr = lay.perm, lay.keys, lay.ptr
+    if kind == "gaps":
+        deg = torch.diff(ptr)
+        assert deg[:40].sum() == deg[60:300].sum() == deg[320:].sum() == 0
     off = torch.empty(src.numel() + 1)[1:].view(src.shape)
     off.copy_(src)
-    for x in (src, off):
-        for sd, od in ((torch.float32, torch.float32),
-                       (torch.bfloat16, torch.bfloat16),
-                       (torch.bfloat16, torch.float32)):
-            xs = x if sd == torch.float32 else x.to(sd)
-            got = _row_sum(lib, xs, perm, lay.ptr, od)
-            want = rowsum.sorted_row_sum_plain(xs, perm, lay.ptr, od)
-            assert torch.equal(got, want), (sd, od)
+    runs = [(x, sd, od, keys.int()) for x in (src, off)
+            for sd, od in ((torch.float32, torch.float32),
+                           (torch.bfloat16, torch.bfloat16),
+                           (torch.bfloat16, torch.float32))]
+    runs += [(x, torch.float32, torch.float32, keys.long())
+             for x in (src, off)]
+    for x, sd, od, k in runs:
+        xs = x if sd == torch.float32 else x.to(sd)
+        got = _row_sum(lib, xs, perm, ptr, k, od)
+        want = rowsum.sorted_row_sum_plain(xs, perm, ptr, od)
+        assert torch.equal(got, want), (sd, od, k.dtype)
+
+
+def test_host_row_sum_refuses_no_keys(lib):
+    """The kernel reads each position's row from the keys: a call with rows
+    and no keys is refused before any launch, and the output is left as it
+    was."""
+    src = torch.ones(40, 3)
+    lay = rowsum.index_layout(torch.arange(40) % 7, 7)
+    out = torch.full((7, 3), float("nan"))
+    part = torch.full((1 * (2 * 3 + 5 + 1),), float("nan"))
+    rc = lib.pna_sorted_row_sum(
+        src.data_ptr(), 0, lay.perm.data_ptr(), None, 0, lay.ptr.data_ptr(),
+        40, 7, 3, out.data_ptr(), 0, part.data_ptr(), None)
+    assert rc != 0
+    assert bool(torch.isnan(out).all())

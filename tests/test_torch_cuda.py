@@ -1193,9 +1193,10 @@ def test_cuda_row_sum_matches_plain_at_the_path_shapes():
     (within SUM_RTOL of the summed magnitudes, plus one bfloat16 rounding
     for a bfloat16 output) and against index_add_ in float64, two launches
     bit-equal, at the flagship senders and sorted receivers (perm None),
-    bfloat16 in and out, F = 1, 400, 500, every other row empty, the
-    large-graph senders (a 383,653-edge sender) at F = 64 and 70 and the
-    200,007-edge receiver hub (sorted)."""
+    the atom and bond lookups, the readout, bfloat16 in and out, F = 1,
+    400, 500, every other row empty, the large-graph senders (a
+    383,653-edge sender) at F = 64 and 70 and the 200,007-edge receiver hub
+    (sorted); the nine shapes of ops/timing.py::row_sum_cases timed."""
     import chip_smoke as cs
     from pna_tpu_torch.data.molecules import ZincDataset, collate_records
     from pna_tpu_torch.ops.timing import flush_buffer
@@ -1204,33 +1205,37 @@ def test_cuda_row_sum_matches_plain_at_the_path_shapes():
     graph, _ = collate_records(ds.train, with_snorm=True)
     res = cs.rowsum_phase(graph, torch.device('cuda'),
                           flush_buffer(torch.device('cuda')))
-    assert len(res['cases']) == 11
+    assert len(res['cases']) == 14
     assert res['cases']['largegraph senders']['max_rows_per_node'] == 383_653
     assert res['cases']['receiver hub, sorted']['max_rows_per_node'] \
         == 200_007
     assert res['cases']['every other row empty']['empty_nodes'] \
         >= graph.n_node_pad
-    for key in ('ms', 'plain_ms', 'library_ms', 'sort_ms', 'hub_ms'):
+    timed = [r for r in res['cases'].values() if 'ms' in r]
+    assert len(timed) == 9
+    for key in ('ms', 'clean_ms', 'plain_ms', 'library_ms', 'sort_ms',
+                'hub_ms', 'receiver_hub_ms'):
         assert res[key] > 0, key
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_row_sum_same_bits_every_run(dtype):
-    """A hub of a third of 300,000 rows over many tiles, F = 64 (16-byte
-    rows) and 70: five launches give the same bits, and so does the plain
-    version's order on the CPU (index_add_ adds in index order there)."""
+    """A hub of a third of 300,000 rows over many tiles, F = 1 (32 rows a
+    warp), 64 (16-byte rows, 2 a warp) and 70: five launches with the
+    layout's keys give the same bits, and so does the plain version's order
+    on the CPU (index_add_ adds in index order there)."""
     from pna_tpu_torch.ops import rowsum
     _need_card()
     rng = np.random.RandomState(5)
-    for f in (64, 70):
+    for f in (1, 64, 70):
         idx = rng.randint(0, 5000, 300_000)
         idx[rng.rand(300_000) < 1 / 3] = 17
         src = torch.from_numpy(rng.randn(300_000, f).astype(np.float32))
         src = src.to(dtype)
         lay = rowsum.index_layout(torch.from_numpy(idx).cuda(), 5000)
-        runs = [rowsum.sorted_row_sum(src.cuda(), lay.perm, lay.ptr)
-                for _ in range(5)]
+        runs = [rowsum.sorted_row_sum(src.cuda(), lay.perm, lay.ptr,
+                                      lay.keys) for _ in range(5)]
         torch.cuda.synchronize()
         assert all(torch.equal(runs[0], r) for r in runs[1:])
         cpu = rowsum.sorted_row_sum_plain(src, lay.perm.cpu(), lay.ptr.cpu())

@@ -52,17 +52,29 @@ def _one_torch_thread():
         torch.set_num_threads(n)
 
 
+def _hold_keys(keys, ptr, e):
+    """The kernel's contract on keys: each sorted position in [ptr[0],
+    ptr[n]) holds its row (the one whose row pointers bracket it)."""
+    lo = ptr.long().clamp(0, e)
+    pos = torch.arange(e)
+    node = torch.searchsorted(lo, pos, right=True) - 1
+    inside = (pos >= lo[0]) & (pos < lo[-1])
+    assert torch.equal(keys.long()[inside], node[inside])
+
+
 @pytest.fixture
 def card_route(monkeypatch):
     """Every float32/bfloat16 sum of rows takes the card's route (the
     autograd functions over the row sum) on the CPU too; returns the list of
-    the row sums' (rows, features) shapes."""
+    the row sums' (rows, features) shapes.  Every call must pass keys that
+    keep the kernel's contract (``_hold_keys``)."""
     calls = []
     wrapper = rowsum.sorted_row_sum
 
-    def counted(src, perm, ptr, out_dtype=None):
+    def counted(src, perm, ptr, keys, out_dtype=None):
         calls.append(tuple(src.shape))
-        return wrapper(src, perm, ptr, out_dtype)
+        _hold_keys(keys, ptr, src.shape[0])
+        return wrapper(src, perm, ptr, keys, out_dtype)
 
     monkeypatch.setattr(seg, '_on_kernel',
                         lambda x: x.dtype in seg._ROW_SUM_DTYPES)
@@ -126,12 +138,17 @@ def test_plain_row_sum_matches_jax_segment_sum(case, f):
 
 
 def test_plain_row_sum_is_the_kernels_order():
-    """The plain version's roundings are the kernel's: a node inside one
-    chunk of 32 sorted rows is their sum in order from 0; a node over two
-    tiles is its two tile pieces added (each from 0); a node over 40 tiles
+    """The plain version's roundings are the kernel's: at F = 3 a lane holds
+    one feature and a warp 8 rows, so a lane group's strip is 4 sorted
+    rows; a node inside one strip is their sum in order from 0, a node over
+    strips of one chunk of 32 the strip pieces added in order (each from
+    0), a node over chunks of one tile the chunk pieces added in order; a
+    node over two tiles is its two tile pieces added; a node over 40 tiles
     is 32 runs of at most 2 tile pieces, added in order.  Checked against
     those sums written out in numpy float32."""
     rng = np.random.RandomState(3)
+    run = rowsum.strip(3, 3)
+    assert run == 4
     n_hub = 40 * rowsum.TILE + 17        # 41 tiles: runs of ceil(41/32) = 2
     idx = np.concatenate([[0] * 5, [1] * 300, [2] * n_hub, [3] * 3])
     src = rng.randn(len(idx), 3).astype(np.float32) * 1e3
@@ -148,11 +165,14 @@ def test_plain_row_sum_is_the_kernels_order():
 
     def node(lo, hi):
         """Sum of rows [lo, hi) by the kernel's rule."""
-        chunk_sums, tile_sums = {}, []
-        for c0 in range(lo // 32 * 32, hi, 32):
-            a, b = max(lo, c0), min(hi, c0 + 32)
-            chunk_sums.setdefault(a // rowsum.TILE, []).append(
+        strip_sums, chunk_sums = {}, {}
+        for c0 in range(lo // run * run, hi, run):
+            a, b = max(lo, c0), min(hi, c0 + run)
+            strip_sums.setdefault(a // rowsum.CHUNK, []).append(
                 seq(src[a:b]))
+        for c, p in sorted(strip_sums.items()):
+            chunk_sums.setdefault(c * rowsum.CHUNK // rowsum.TILE,
+                                  []).append(seq(p))
         tile_sums = [seq(p) for _, p in sorted(chunk_sums.items())]
         if len(tile_sums) == 1:
             return tile_sums[0]
@@ -167,8 +187,9 @@ def test_plain_row_sum_is_the_kernels_order():
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 def test_index_layout_matches_numpy_exactly(dtype):
-    """perm is numpy's stable argsort, ptr the left searchsorted of
-    0..n; ids outside [0, n) fall outside [ptr[0], ptr[n])."""
+    """perm is numpy's stable argsort, keys the sorted index (int32), ptr
+    the left searchsorted of 0..n; ids outside [0, n) fall outside
+    [ptr[0], ptr[n])."""
     rng = np.random.RandomState(1)
     idx = rng.randint(-3, 60, 5000)
     idx[:1000] = 17
@@ -176,7 +197,10 @@ def test_index_layout_matches_numpy_exactly(dtype):
     lay = rowsum.index_layout(t, 50)
     order = np.argsort(idx, kind='stable')
     assert lay.perm.dtype == torch.int32 and lay.ptr.dtype == torch.int32
+    assert lay.keys.dtype == torch.int32
     np.testing.assert_array_equal(lay.perm.numpy(), order)
+    np.testing.assert_array_equal(lay.keys.numpy(), np.sort(idx,
+                                                            kind='stable'))
     np.testing.assert_array_equal(
         lay.ptr.numpy(), np.searchsorted(idx[order], np.arange(51)))
     assert int(lay.ptr[0]) == int((idx < 0).sum())
@@ -184,11 +208,16 @@ def test_index_layout_matches_numpy_exactly(dtype):
 
 
 def test_index_layout_is_kept_on_its_index():
-    """The same tensor and row count give the kept layout; another row
-    count, another tensor or an in-place edit of the index a new one."""
+    """The same tensor and row count give the kept layout, its keys
+    included; another row count, another tensor or an in-place edit of the
+    index a new one."""
     t = torch.tensor([3, 1, 1, 0, 2])
     a = rowsum.index_layout(t, 4)
     assert rowsum.index_layout(t, 4) is a
+    assert rowsum.index_layout(t, 4).keys is a.keys
+    assert any(lay.keys is a.keys
+               for lay in t.__dict__['_pna_row_layouts'].values())
+    np.testing.assert_array_equal(a.keys.numpy(), [0, 1, 1, 2, 3])
     assert rowsum.index_layout(t, 5) is not a
     assert rowsum.index_layout(t.clone(), 4) is not a
     t[0] = 0
@@ -207,7 +236,7 @@ def test_wrapper_takes_its_plain_version_on_the_cpu(dtype):
     lay = rowsum.index_layout(idx, 30)
     before = rowsum.sorted_row_sum.launches
     for out in (dtype, torch.float32):
-        got = rowsum.sorted_row_sum(src, lay.perm, lay.ptr, out)
+        got = rowsum.sorted_row_sum(src, lay.perm, lay.ptr, lay.keys, out)
         want = rowsum.sorted_row_sum_plain(src, lay.perm, lay.ptr, out)
         assert got.dtype == out and torch.equal(got, want)
     assert rowsum.sorted_row_sum.launches == before
@@ -228,7 +257,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     ]
     for args in bad:
         with pytest.raises(ValueError):
-            rowsum.sorted_row_sum(*args)
+            rowsum.sorted_row_sum(*args[:3], lay.keys, args[3])
+    for keys in (lay.keys.short(), lay.keys[:5],        # int16, length
+                 lay.keys.float(), torch.zeros(12, dtype=torch.int32)[::2]):
+        with pytest.raises(ValueError):
+            rowsum.sorted_row_sum(src, lay.perm, lay.ptr, keys)
 
 
 def test_wrapper_has_no_fallback():
@@ -311,6 +344,31 @@ def test_gather_rows_over_row_pointers_matches_jax(card_route):
     with pytest.raises(ValueError, match="row pointers"):
         y = torch.from_numpy(x).requires_grad_(True)
         seg.gather_rows(y, index, ptr[:-1]).sum().backward()
+
+
+def test_gather_rows_over_a_padded_part_keeps_the_padding_out(card_route):
+    """A partition's part (``sort_partition_edges``): real edges sorted by
+    receiver, padding with receiver 0 after them, row pointers over the
+    real edges only.  The index is passed as the keys, and the padding's
+    rows past ptr[n] add nothing: the gradient equals index_add_ over the
+    real edges."""
+    from pna_tpu_torch.parallel.partition import (partition_edges,
+                                                  powerlaw_graph,
+                                                  sort_partition_edges)
+    snd, rcv = powerlaw_graph(300, 3000, seed=2, exponent=1.5)
+    part = sort_partition_edges(partition_edges(snd, rcv, 300, 2))
+    for p in range(part.num_parts):
+        ptr = torch.from_numpy(part.edge_ptr[p])
+        index = torch.from_numpy(part.receivers_local[p]).long()
+        real = int(ptr[-1])
+        assert real < index.numel() and bool((index[real:] == 0).all())
+        n = ptr.numel() - 1
+        gw = torch.from_numpy(np.random.RandomState(p).randn(
+            index.numel(), 5).astype(np.float32))
+        x = torch.zeros(n, 5, requires_grad=True)
+        (seg.gather_rows(x, index, ptr) * gw).sum().backward()
+        want = torch.zeros(n, 5).index_add_(0, index[:real], gw[:real])
+        assert torch.allclose(x.grad, want, rtol=1e-5, atol=1e-5)
 
 
 def test_bf16_gather_and_segment_sum_on_the_card_route(card_route):
