@@ -1,0 +1,4 @@
+"""Device kernels per training step, epochs of small graphs in batches (the ZINC cell): counted in the
+profiler's trace of the traced steps (copies and sets not counted)."""
+
+from portbench.readers import kernels_per_step as read  # noqa: F401
