@@ -11,8 +11,9 @@ plateau schedule (factor 0.5, patience 20, min_lr 1e-4) stepped on
 epoch by validation ROC-AUC.  Every epoch runs (no early stop).  The JSONL
 log adds to the JAX keys the host seconds of the epoch (``epoch_s``), of its
 training pass (``train_s``), of batch collation and of the per-step loss
-read inside that pass (``collate_s``, ``sync_s``), and its steps
-(``train_steps``).
+read inside that pass (``collate_s``, ``sync_s``: the sums of the spans
+``pna.collate`` and ``pna.loss_read``, ``utils/profiling.py::span``), and
+its steps (``train_steps``).
 
     python -m pna_tpu_torch.cli.pyg_example --synthetic
 
@@ -35,6 +36,7 @@ from pna_tpu_torch.nn.pyg import PNANetPyGExample
 from pna_tpu_torch.ops.scalers import avg_d_from_degree_hist
 from pna_tpu_torch.train.metrics import roc_auc
 from pna_tpu_torch.utils.logging import MetricsLogger
+from pna_tpu_torch.utils.profiling import span, span_seconds
 
 # split sizes of the synthetic dataset (--synthetic, or no OGB directory)
 SYNTHETIC = dict(n_train=1000, n_val=200, n_test=200)
@@ -112,13 +114,12 @@ def main(argv=None, *, device: DeviceLike = None):
     best = (0.0, 0.0, 0)
     for epoch in range(1, args.epochs + 1):
         model.train()
-        losses, collate_s, sync_s = [], 0.0, 0.0
-        t_epoch = time.perf_counter()
+        losses = []
+        t_epoch, since = time.perf_counter(), span_seconds()
         it = batches(ds.train, args.batch_size, shuffle_rng)
         while True:
-            t0 = time.perf_counter()
-            item = next(it, None)
-            collate_s += time.perf_counter() - t0
+            with span('pna.collate'):
+                item = next(it, None)
             if item is None:
                 break
             graph, y = item
@@ -128,10 +129,10 @@ def main(argv=None, *, device: DeviceLike = None):
                                          y.to(device), g.graph_mask)
             loss.backward()
             opt.step()
-            t0 = time.perf_counter()
-            losses.append(float(loss.detach()))     # waits for the device
-            sync_s += time.perf_counter() - t0
+            with span('pna.loss_read'):
+                losses.append(float(loss.detach()))     # waits for the device
         train_s = time.perf_counter() - t_epoch
+        spent = span_seconds(since)
         val_roc = evaluate(ds.val)
         test_roc = evaluate(ds.test)
         sched.step(1.0 - val_roc)
@@ -143,7 +144,9 @@ def main(argv=None, *, device: DeviceLike = None):
                        test_roc=test_roc,
                        lr=float(opt.param_groups[0]['lr']),
                        epoch_s=time.perf_counter() - t_epoch,
-                       train_s=train_s, collate_s=collate_s, sync_s=sync_s,
+                       train_s=train_s,
+                       collate_s=spent.get('pna.collate', 0.0),
+                       sync_s=spent.get('pna.loss_read', 0.0),
                        train_steps=len(losses))
         if val_roc > best[0]:
             best = (val_roc, test_roc, epoch)

@@ -44,6 +44,13 @@ The math is the JAX layer's:
 * graph-norm, masked batch-norm, dropout, the ``mixing`` linear,
   leaky_relu(0.01), and the residual when ``in_dim == out_dim``.
 
+The forward is three spans (``utils/profiling.py::span``), timed on the
+device while the profiler runs: ``pna.message`` (the gathers and the
+pretrans, or ``csr_fused``'s node halves), ``pna.aggregate`` (the bank)
+and ``pna.update`` (posttrans with the scalers, norms, mixing, residual);
+the overlap path enters the first two once for its local and once for its
+boundary edges.
+
 ``compute_dtype=torch.bfloat16`` rounds at the JAX layer's places: the layer
 input, every matmul operand (the products are then taken and summed in
 float32, the JAX ``preferred_element_type=float32``: the operands are widened
@@ -77,6 +84,7 @@ The distributed path (``parallel/distributed_net.py``):
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -94,6 +102,7 @@ from pna_tpu_torch.ops import (bucketed, csr_bank, csr_fused, fused_vjp,
 from pna_tpu_torch.ops.scalers import scaler_weights
 from pna_tpu_torch.ops.segment import gather_rows
 from pna_tpu_torch.parallel import tower_tp
+from pna_tpu_torch.utils.profiling import span
 
 KERNELS = ('auto', 'csr', 'csr_fused', 'bucketed', 'ell', 'generic')
 _RENAMED = {'pallas': 'csr', 'pallas_fused': 'csr_fused'}
@@ -169,6 +178,16 @@ def backend_layout(backend: str, graph: Graph, max_degree: int = 0
     if backend in ('csr', 'csr_fused'):
         return csr_bank.layout_from_graph(graph, max_degree)
     return bank_layout(graph, max_degree) if backend == 'generic' else None
+
+
+def _phase(name: str, device):
+    """The span of one phase of a layer's forward (``pna.message``,
+    ``pna.aggregate``, ``pna.update``); none inside the autograd engine,
+    where a checkpointed layer (``remat``) replays its forward: that replay
+    is the backward's time."""
+    if torch._C._current_graph_task_id() != -1:
+        return contextlib.nullcontext()
+    return span(name, device)
 
 
 def _round(x, cdt):
@@ -374,137 +393,156 @@ class PNALayerFused(nn.Module):
 
         src_rows = (hb if sender_table is None
                     else self._tower_input(sender_table.to(cdt)))
-        Z = moments = None
+        dev = h.device
+        Z = moments = agg = None
         if backend == 'overlap':
             # local partial while the exchange is in flight, then boundary
             halo, s_l, r_l, m_l, s_b, r_b, m_b = overlap[:7]
             e_l, e_b = overlap[7:] if self.edge_features else (None, None)
-            msg_l = pretrans_edges(gather_rows(hb, s_l),
-                                   gather_rows(hb, r_l), e_l)
-            sk = partial_stats.partial_sketch(
-                msg_l.reshape(-1, T * Ft), r_l, N, m_l)
+            with _phase('pna.message', dev):
+                msg_l = pretrans_edges(gather_rows(hb, s_l),
+                                       gather_rows(hb, r_l), e_l)
+            with _phase('pna.aggregate', dev):
+                sk = partial_stats.partial_sketch(
+                    msg_l.reshape(-1, T * Ft), r_l, N, m_l)
             if hasattr(halo, 'wait'):
                 halo = halo.wait()
-            halo = self._tower_input(halo.to(cdt))
-            msg_b = pretrans_edges(gather_rows(halo, s_b),
-                                   gather_rows(hb, r_b), e_b)
-            sk = partial_stats.combine(sk, partial_stats.partial_sketch(
-                msg_b.reshape(-1, T * Ft), r_b, N, m_b))
-            Z = partial_stats.finalize_bank(sk, self.aggregators)
-            deg = sk.cnt
+            with _phase('pna.message', dev):
+                halo = self._tower_input(halo.to(cdt))
+                msg_b = pretrans_edges(gather_rows(halo, s_b),
+                                       gather_rows(hb, r_b), e_b)
+            with _phase('pna.aggregate', dev):
+                sk = partial_stats.combine(sk, partial_stats.partial_sketch(
+                    msg_b.reshape(-1, T * Ft), r_b, N, m_b))
+                Z = partial_stats.finalize_bank(sk, self.aggregators)
+                deg = sk.cnt
         elif backend == 'csr_fused':
             # node halves only: the kernels form u[snd] + v[rcv] (+ e ke);
             # u has a row per sender-table row
-            if self.divide_input:
-                u = _ein(src_rows.reshape(-1, T, Ft), k_src, cdt)
-                v = _ein(hb.reshape(N, T, Ft), k_dst, cdt)
-            else:
-                u = _ein_shared(src_rows, k_src, cdt)
-                v = _ein_shared(hb, k_dst, cdt)
-            u = u.reshape(-1, T * Ft).to(cdt)
-            v = (v + b0).reshape(N, T * Ft).to(cdt)
-            ef = ke = None
-            if self.edge_features:
-                ef = e.to(cdt)
-                ke = k0[:, 2 * Ft:].to(cdt).permute(1, 0, 2).reshape(
-                    -1, T * Ft)                             # [Fe, T*Ft]
-            Z = csr_fused.csr_fused_bank(u, v, ef, ke, layout,
-                                         self.aggregators)  # [N, A, T*Ft]
-            deg = layout.deg
-        else:
-            src = gather_rows(src_rows, graph.senders)
-            if graph.bucket_spec is not None:
-                # the receiver gather is a broadcast in the bucketed layout
-                dst = bucketed.expand_to_edges(hb, graph.bucket_spec)
-            else:
-                dst = gather_rows(hb, graph.receivers, graph.edge_ptr)
-            msg = pretrans_edges(src, dst,
-                                 e if self.edge_features else None)
-            if backend != 'generic':
-                # stored in the compute dtype; the banks widen to float32
-                msg = msg.to(cdt).reshape(E, T * Ft)
-            if backend == 'csr':
-                Z = csr_bank.csr_raw_bank(msg, layout, self.aggregators)
-                deg = layout.deg
-            elif backend == 'bucketed':
-                spec, in_deg = graph.bucket_spec, graph.in_deg
-                if all(a in bucketed.MOMENT_DERIVABLE
-                       for a in self.aggregators):
-                    moments = bucketed.moment_stats(msg, spec, in_deg=in_deg)
+            with _phase('pna.message', dev):
+                if self.divide_input:
+                    u = _ein(src_rows.reshape(-1, T, Ft), k_src, cdt)
+                    v = _ein(hb.reshape(N, T, Ft), k_dst, cdt)
                 else:
-                    Z = bucketed.raw_bank(msg, spec, self.aggregators,
-                                          in_deg=in_deg)
-                deg = (in_deg if in_deg is not None else torch.from_numpy(
-                    bucketed.degrees(spec)).to(h.device))
-            elif backend == 'ell':
-                bank = fused_vjp.make_raw_bank(graph.receivers,
-                                               graph.edge_mask)
-                Z = bank(msg, graph.nbr_edge_ids, graph.nbr_mask,
-                         self.aggregators)
-                deg = graph.nbr_mask.sum(dim=1).to(torch.float32)
+                    u = _ein_shared(src_rows, k_src, cdt)
+                    v = _ein_shared(hb, k_dst, cdt)
+                u = u.reshape(-1, T * Ft).to(cdt)
+                v = (v + b0).reshape(N, T * Ft).to(cdt)
+                ef = ke = None
+                if self.edge_features:
+                    ef = e.to(cdt)
+                    ke = k0[:, 2 * Ft:].to(cdt).permute(1, 0, 2).reshape(
+                        -1, T * Ft)                         # [Fe, T*Ft]
+            with _phase('pna.aggregate', dev):
+                Z = csr_fused.csr_fused_bank(
+                    u, v, ef, ke, layout, self.aggregators)  # [N, A, T*Ft]
+                deg = layout.deg
+        else:
+            with _phase('pna.message', dev):
+                src = gather_rows(src_rows, graph.senders)
+                if graph.bucket_spec is not None:
+                    # the receiver gather is a broadcast in the bucketed
+                    # layout
+                    dst = bucketed.expand_to_edges(hb, graph.bucket_spec)
+                else:
+                    dst = gather_rows(hb, graph.receivers, graph.edge_ptr)
+                msg = pretrans_edges(src, dst,
+                                     e if self.edge_features else None)
+                if backend != 'generic':
+                    # stored in the compute dtype; the banks widen to
+                    # float32
+                    msg = msg.to(cdt).reshape(E, T * Ft)
+                self_msg = None
+                if backend == 'generic' and 'identity' in self.aggregators:
+                    self_msg = pretrans_nodes(hb).reshape(N, T * Ft)
+            with _phase('pna.aggregate', dev):
+                if backend == 'csr':
+                    Z = csr_bank.csr_raw_bank(msg, layout, self.aggregators)
+                    deg = layout.deg
+                elif backend == 'bucketed':
+                    spec, in_deg = graph.bucket_spec, graph.in_deg
+                    if all(a in bucketed.MOMENT_DERIVABLE
+                           for a in self.aggregators):
+                        moments = bucketed.moment_stats(msg, spec,
+                                                        in_deg=in_deg)
+                    else:
+                        Z = bucketed.raw_bank(msg, spec, self.aggregators,
+                                              in_deg=in_deg)
+                    deg = (in_deg if in_deg is not None else
+                           torch.from_numpy(bucketed.degrees(spec)).to(
+                               h.device))
+                elif backend == 'ell':
+                    bank = fused_vjp.make_raw_bank(graph.receivers,
+                                                   graph.edge_mask)
+                    Z = bank(msg, graph.nbr_edge_ids, graph.nbr_mask,
+                             self.aggregators)
+                    deg = graph.nbr_mask.sum(dim=1).to(torch.float32)
+                else:
+                    agg = aggregate_bank(graph, msg.reshape(E, T * Ft),
+                                         self.aggregators, self.scalers,
+                                         self.avg_d, self_msg=self_msg,
+                                         layout=layout)
 
         # ---- posttrans with the scaler axis folded into the output ----
-        kp, bp = self.posttrans.layer(0)
-        k_h = kp[:, :Ft]                                    # [T, Ft, Fo]
-        if backend == 'generic':
-            self_msg = None
-            if 'identity' in self.aggregators:
-                self_msg = pretrans_nodes(hb).reshape(N, T * Ft)
-            agg = aggregate_bank(graph, msg.reshape(E, T * Ft),
-                                 self.aggregators, self.scalers, self.avg_d,
-                                 self_msg=self_msg, layout=layout)
-            # rows Ft + (s*A + a)*Ft + f of tower t <- bank column
-            # ((s*A + a)*T + t)*Ft + f
-            k_agg = kp[:, Ft:].reshape(T, S * A, Ft, Fo)
-            if self.divide_input:
-                out = torch.einsum('ntf,tfo->nto',
-                                   _round(hb.reshape(N, T, Ft), cdt),
-                                   _round(k_h, cdt))
+        with _phase('pna.update', dev):
+            kp, bp = self.posttrans.layer(0)
+            k_h = kp[:, :Ft]                                # [T, Ft, Fo]
+            if backend == 'generic':
+                # rows Ft + (s*A + a)*Ft + f of tower t <- bank column
+                # ((s*A + a)*T + t)*Ft + f
+                k_agg = kp[:, Ft:].reshape(T, S * A, Ft, Fo)
+                if self.divide_input:
+                    out = torch.einsum('ntf,tfo->nto',
+                                       _round(hb.reshape(N, T, Ft), cdt),
+                                       _round(k_h, cdt))
+                else:
+                    out = _ein_shared(hb, k_h, cdt)
+                out = out + torch.einsum(
+                    'nxtf,txfo->nto',
+                    _round(agg.reshape(N, S * A, T, Ft), cdt),
+                    _round(k_agg, cdt)) + bp
             else:
-                out = _ein_shared(hb, k_h, cdt)
-            out = out + torch.einsum(
-                'nxtf,txfo->nto', _round(agg.reshape(N, S * A, T, Ft), cdt),
-                _round(k_agg, cdt)) + bp
-        else:
-            w = scaler_weights(self.scalers, deg, self.avg_d)   # [S, N]
-            # rows of kp per tower: [0:Ft] = h part; Ft + s*A*Ft + a*Ft + f
-            k_agg = kp[:, Ft:].reshape(T, S, A, Ft, Fo)
-            if self.divide_input:
-                out = _ein(hb.reshape(N, T, Ft), k_h, cdt)
-            else:
-                out = _ein_shared(hb, k_h, cdt)
-            eye = torch.eye(T, dtype=kp.dtype, device=kp.device)
-            if moments is not None:
-                # each aggregator derived and contracted with its own slice
-                # of the weight: the stacked Z is never formed
-                y = 0
-                for i, a in enumerate(self.aggregators):
-                    Za = bucketed.derive_aggregator(a, *moments)
-                    Wa = _round(torch.einsum(
-                        'tsfo,tu->tfuos', k_agg[:, :, i], eye).reshape(
-                            T * Ft, T * Fo * S), cdt)
-                    y = y + (_round(Za, cdt) @ Wa).reshape(N, T, Fo, S)
-            else:
-                W = _round(torch.einsum('tsafo,tu->atfuos', k_agg,
-                                        eye).reshape(A * T * Ft, T * Fo * S),
-                           cdt)
-                y = (_round(Z.reshape(N, A * T * Ft), cdt) @ W).reshape(
-                    N, T, Fo, S)
-            out = out + torch.einsum('ntos,sn->nto', _round(y, cdt),
-                                     _round(w, cdt)) + bp
-        out = self.posttrans.rest(out, cdt).reshape(N, T * Fo)
-        if self.tp_group is not None:
-            out = tower_tp.gather_towers(out, self.tp_group)   # [N, towers*Fo]
+                w = scaler_weights(self.scalers, deg, self.avg_d)  # [S, N]
+                # rows of kp per tower: [0:Ft] = h part;
+                # Ft + s*A*Ft + a*Ft + f
+                k_agg = kp[:, Ft:].reshape(T, S, A, Ft, Fo)
+                if self.divide_input:
+                    out = _ein(hb.reshape(N, T, Ft), k_h, cdt)
+                else:
+                    out = _ein_shared(hb, k_h, cdt)
+                eye = torch.eye(T, dtype=kp.dtype, device=kp.device)
+                if moments is not None:
+                    # each aggregator derived and contracted with its own
+                    # slice of the weight: the stacked Z is never formed
+                    y = 0
+                    for i, a in enumerate(self.aggregators):
+                        Za = bucketed.derive_aggregator(a, *moments)
+                        Wa = _round(torch.einsum(
+                            'tsfo,tu->tfuos', k_agg[:, :, i], eye).reshape(
+                                T * Ft, T * Fo * S), cdt)
+                        y = y + (_round(Za, cdt) @ Wa).reshape(N, T, Fo, S)
+                else:
+                    W = _round(torch.einsum(
+                        'tsafo,tu->atfuos', k_agg, eye).reshape(
+                            A * T * Ft, T * Fo * S), cdt)
+                    y = (_round(Z.reshape(N, A * T * Ft), cdt) @ W).reshape(
+                        N, T, Fo, S)
+                out = out + torch.einsum('ntos,sn->nto', _round(y, cdt),
+                                         _round(w, cdt)) + bp
+            out = self.posttrans.rest(out, cdt).reshape(N, T * Fo)
+            if self.tp_group is not None:
+                # [N, towers*Fo]
+                out = tower_tp.gather_towers(out, self.tp_group)
 
-        if self.graph_norm:
-            out = out * graph.snorm_n
-        if self.batch_norm:
-            out = self.batchnorm_h(out, graph.node_mask)
-        out = F.leaky_relu(self.mixing(self.dropout(out)),
-                           negative_slope=0.01)
-        if self.residual:
-            out = h + out
-        return out
+            if self.graph_norm:
+                out = out * graph.snorm_n
+            if self.batch_norm:
+                out = self.batchnorm_h(out, graph.node_mask)
+            out = F.leaky_relu(self.mixing(self.dropout(out)),
+                               negative_slope=0.01)
+            if self.residual:
+                out = h + out
+            return out
 
     def _tower_input(self, x: torch.Tensor) -> torch.Tensor:
         """The columns of ``x`` [..., in_dim] that this rank's towers read:

@@ -42,7 +42,7 @@ from pna_tpu_torch.parallel.partition import (EdgePartition,
                                               sort_partition_edges)
 from pna_tpu_torch.utils.checkpoint import (CheckpointManager,
                                             load_checkpoint, save_checkpoint)
-from pna_tpu_torch.utils.profiling import StepTimer
+from pna_tpu_torch.utils.profiling import StepTimer, span
 
 KERNELS = ('auto', 'bucketed', 'generic', 'csr', 'csr_fused')
 
@@ -82,6 +82,10 @@ def make_node_train_step(part: EdgePartition, mesh, net: DistributedPNANet,
       mode (the running batch-norm statistics), without gradients;
     * ``tables``: this rank's ``PartTables`` (its CSR layout, built once).
 
+    ``step`` times its forward, backward, Adam step and loss read as the
+    spans ``pna.forward``, ``pna.backward``, ``pna.optimizer`` and
+    ``pna.loss_read`` (``utils/profiling.py::span``).
+
     ``mesh`` None: one process without a process group, the net built
     without groups and ``part`` of one part; the same step with every
     collective left out (the single-device semantics)."""
@@ -115,12 +119,16 @@ def make_node_train_step(part: EdgePartition, mesh, net: DistributedPNANet,
     def step(feats, targets, mask) -> float:
         net.train()
         optimizer.zero_grad(set_to_none=True)
-        loss = objective(feats, targets, mask)
-        (loss * scale).backward()
+        with span('pna.forward', dev):
+            loss = objective(feats, targets, mask)
+        with span('pna.backward', dev):
+            (loss * scale).backward()
         if grouped:
             collectives.all_reduce_grads(net.parameters())
-        optimizer.step()
-        return mean_over_data(loss)
+        with span('pna.optimizer', dev):
+            optimizer.step()
+        with span('pna.loss_read'):
+            return mean_over_data(loss)
 
     def evaluate(feats, targets, mask) -> float:
         net.eval()

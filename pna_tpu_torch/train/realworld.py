@@ -25,8 +25,11 @@ nothing.  It runs on the device its model lives on, which must be
 ``device='cpu'``).  Batches are collated on the CPU and moved to the device
 once each; each epoch's history record adds, to the JAX keys, host seconds:
 of the whole epoch with its evaluation (``epoch_s``), of its training pass
-(``train_s``), of batch collation inside that pass (``collate_s``) and of
-waiting for each step's loss (``sync_s``), and the pass's number of steps
+(``train_s``), and inside that pass the sums of the program's spans
+(``utils/profiling.py::span``) of batch collation (``collate_s``), the
+host-to-device copy (``h2d_s``), the forward with the loss (``forward_s``),
+the backward (``backward_s``), Adam's step (``optimizer_s``) and the wait
+for each step's loss (``sync_s``), and the pass's number of steps
 (``train_steps``).
 
 ``bucket_by_degree=True`` collates every batch, evaluation included, in the
@@ -54,6 +57,12 @@ from pna_tpu_torch.device import DeviceLike, resolve_device
 from pna_tpu_torch.train import metrics as M
 from pna_tpu_torch.utils.checkpoint import CheckpointManager, save_checkpoint
 from pna_tpu_torch.utils.logging import MetricsLogger, param_count
+from pna_tpu_torch.utils.profiling import span, span_seconds
+
+# ``last_pass`` and history keys: the host seconds of these spans in a pass
+PASS_SPANS = dict(collate_s='pna.collate', h2d_s='pna.h2d',
+                  forward_s='pna.forward', backward_s='pna.backward',
+                  optimizer_s='pna.optimizer', sync_s='pna.loss_read')
 
 
 @dataclass
@@ -125,7 +134,7 @@ class RealworldTrainer:
             lambda graph: (graph, graph.node_feats.squeeze(-1)))
         self.optimizer = make_optimizer(model, cfg)
         self.scheduler = make_scheduler(self.optimizer, cfg)
-        # host seconds and steps of the last run_epoch
+        # host seconds (PASS_SPANS) and steps of the last run_epoch
         self.last_pass: dict = {}
         # bucket capacities of every batch (bucket_by_degree), set by fit
         self.bucket_caps: Optional[dict] = None
@@ -149,41 +158,46 @@ class RealworldTrainer:
         """One pass over ``records`` (shuffled by ``seed`` when training);
         returns (mean batch loss, epoch metric)."""
         batch_size = batch_size or self.cfg.batch_size
-        model, opt = self.model, self.optimizer
+        model, opt, dev = self.model, self.optimizer, self.device
         model.train(train)
         losses, outs, labels_all, masks = [], [], [], []
-        t_start, collate_s, sync_s = time.perf_counter(), 0.0, 0.0
+        t_start, since = time.perf_counter(), span_seconds()
         batches = batch_iterator(records, batch_size, seed, shuffle=train,
                                  bucket_caps=self.bucket_caps)
         while True:
-            t0 = time.perf_counter()
-            item = next(batches, None)
-            collate_s += time.perf_counter() - t0
+            with span('pna.collate'):
+                item = next(batches, None)
             if item is None:
                 break
             graph, labels = item
-            g, y = graph.to(self.device), labels.to(self.device)
+            with span('pna.h2d'):
+                g, y = graph.to(dev), labels.to(dev)
             if train:
                 opt.zero_grad(set_to_none=True)
-                out = model(*self.forward_args(g))
-                loss = self.loss_fn(out, y, g.graph_mask)
-                loss.backward()
-                opt.step()
-            else:
-                with torch.no_grad():
+                with span('pna.forward', dev):
                     out = model(*self.forward_args(g))
                     loss = self.loss_fn(out, y, g.graph_mask)
-            t0 = time.perf_counter()
-            losses.append(float(loss.detach()))     # waits for the device
-            sync_s += time.perf_counter() - t0
+                with span('pna.backward', dev):
+                    loss.backward()
+                with span('pna.optimizer', dev):
+                    opt.step()
+            else:
+                with torch.no_grad(), span('pna.forward', dev):
+                    out = model(*self.forward_args(g))
+                    loss = self.loss_fn(out, y, g.graph_mask)
+            with span('pna.loss_read'):
+                losses.append(float(loss.detach()))     # waits for the device
             outs.append(out.detach())
             labels_all.append(labels)
             masks.append(graph.graph_mask)
+        spent = span_seconds(since)
         self.last_pass = dict(seconds=time.perf_counter() - t_start,
-                              collate_s=collate_s, sync_s=sync_s,
-                              steps=len(losses))
-        return float(np.mean(losses)), self._epoch_metric(outs, labels_all,
-                                                          masks)
+                              steps=len(losses), **{
+                                  key: spent.get(name, 0.0)
+                                  for key, name in PASS_SPANS.items()})
+        with span('pna.epoch_metric'):
+            metric = self._epoch_metric(outs, labels_all, masks)
+        return float(np.mean(losses)), metric
 
     # -- checkpoints ------------------------------------------------------
     def _model_state(self):
@@ -258,9 +272,8 @@ class RealworldTrainer:
                                 val_loss=vl, val_metric=vm, test_metric=test_m,
                                 lr=lr, epoch_s=time.perf_counter() - t_epoch,
                                 train_s=timing['seconds'],
-                                collate_s=timing['collate_s'],
-                                sync_s=timing['sync_s'],
-                                train_steps=timing['steps']))
+                                train_steps=timing['steps'],
+                                **{k: timing[k] for k in PASS_SPANS}))
             if logger:
                 logger.log(epoch, **history[-1])
             improved = (vm < best_val) if select_best == 'min' \

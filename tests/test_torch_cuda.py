@@ -32,7 +32,9 @@ version at chip_smoke.py's shapes, five launches bit-equal to each other
 and to the plain version's order on the CPU, a gradient through
 ``gather_rows`` and ``segment_sum`` bit-equal in two runs, and a
 large-graph trainer resume on the card equal to the straight run bit for
-bit.  Every launch count held includes the row sum's (``_launches``)."""
+bit.  Every launch count held includes the row sum's (``_launches``).  The
+last holds the large-graph step's spans (``utils/profiling.py::span``):
+their device time against the profiler's busy time."""
 
 import numpy as np
 import pytest
@@ -1307,3 +1309,78 @@ def test_cuda_largegraph_trainer_resume_exact(nccl_one_rank, tmp_path):
         h['train_loss'] for h in hist_c]
     for k, v in net_c.state_dict().items():
         assert torch.equal(net_r.state_dict()[k], v), k
+
+
+def _busy_s(prof) -> float:
+    """Seconds of the union of the card's activity (kernels, copies, sets;
+    not the ranges ``record_function`` shows on the device) in a trace."""
+    spans = []
+    for ev in prof.profiler.kineto_results.events():
+        if 'CUDA' not in str(ev.device_type()):
+            continue
+        if (hasattr(ev, 'is_user_annotation') and ev.is_user_annotation()) \
+                or 'annotation' in str(getattr(ev, 'activity_type',
+                                               str)()).lower():
+            continue
+        spans.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+    busy, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return busy / 1e9
+
+
+@pytest.mark.cuda
+def test_cuda_step_spans_cover_the_busy_device():
+    """The large-graph step (``make_node_train_step``, csr, Adam) on the
+    benchmark's 625k-node, 6.25M-edge power-law graph, where the device is
+    busy all but a few percent of a step, under ``profiling.trace``: the
+    device time of its spans ``pna.forward`` + ``pna.backward`` +
+    ``pna.optimizer`` within 10% of the profiler's busy time (a span's
+    events also hold the device's idle inside it), each span timed once a
+    step, the layers' phases once per layer a step and inside the
+    forward's time; with the profiler off, no span is timed on the
+    device."""
+    from pna_tpu_torch.parallel.distributed_net import DistributedPNANet
+    from pna_tpu_torch.train.largegraph import (LargeGraphConfig,
+                                                build_problem,
+                                                make_node_train_step)
+    from pna_tpu_torch.utils import profiling
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LargeGraphConfig(num_nodes=625_000, num_edges=6_250_000,
+                           d_graph=1, kernel='csr', seed=0)
+    part, x, y, tmask, _, _, avg_d, kernel = build_problem(cfg, 'cuda')
+    net = DistributedPNANet(cfg.feat_dim, hidden_dim=64, out_dim=64,
+                            n_layers=4, towers=4, avg_d=avg_d, kernel=kernel,
+                            node_level=True, device='cuda', seed=0)
+    step, _, _ = make_node_train_step(
+        part, None, net, torch.optim.Adam(net.parameters(), lr=1e-3))
+    xs, ys, ms = (torch.from_numpy(a[0]).cuda() for a in (x, y, tmask))
+    profiling.reset_spans()
+    for _ in range(3):
+        step(xs, ys, ms)
+    assert all(s['device_calls'] == 0
+               for s in profiling.span_stats().values())
+    steps = 4
+    profiling.reset_spans()
+    torch.cuda.synchronize()
+    with profiling.trace() as prof:
+        for _ in range(steps):
+            step(xs, ys, ms)
+        torch.cuda.synchronize()
+    stats = profiling.span_stats()
+    profiling.reset_spans()
+    busy = _busy_s(prof)
+    for name in ('pna.forward', 'pna.backward', 'pna.optimizer'):
+        assert stats[name]['device_calls'] == steps, name
+    for name in ('pna.message', 'pna.aggregate', 'pna.update'):
+        assert stats[name]['device_calls'] == 4 * steps, name
+    spans = sum(stats[n]['device_s'] for n in
+                ('pna.forward', 'pna.backward', 'pna.optimizer'))
+    phases = sum(stats[n]['device_s'] for n in
+                 ('pna.message', 'pna.aggregate', 'pna.update'))
+    assert abs(spans - busy) <= 0.1 * busy, (spans, busy)
+    assert phases <= stats['pna.forward']['device_s']
