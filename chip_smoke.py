@@ -197,6 +197,12 @@ Phases (any failure raises, so the script exits non-zero):
     training step of each from (b); (d) short runs of ``main`` with
     ``--no_edge_feat`` and with 80-wide layers in bfloat16, held like (a).
 
+The GAT phase (``gat_phase``): the attention kernels ``csr_gat_attend`` and
+``csr_gat_attend_bwd`` at the GAT cell's two layer shapes bit-equal to
+their plain versions, twice, timed beside their byte bounds (their rows
+close the kernels line), and ``cli.train_largegraph.main --model gat``
+with its exact launches.
+
 Every launch count a phase holds includes the row sum's, worked out from
 the code (``ROWSUM_PER_LAYER``, ``ROWSUM_READOUT``, the embedding lookups,
 ``LG_ROWSUM``, ``sp_cases``).  The line before the last is ``{"kernels":
@@ -1072,6 +1078,139 @@ def edge_message_phase(dev):
                            f=flag["f"], w=flag["w"]),
                 largegraph_shapes=times["largegraph"],
                 zinc_b128=times["zinc_b128"])
+
+
+GAT_SOURCE = "pna_tpu_torch/csrc/csr_gat_attend.cu"
+# the GAT cell's layers: (heads, head width) at 625,000 receivers and
+# 6,250,000 power-law edges
+GAT_LAYERS = ((4, 256), (6, 121))
+GAT_CELL = (625_000, 6_250_000)
+GAT_ARGV = ['--model', 'gat', '--d_graph', '1', '--nodes', '100000',
+            '--edges', '1000000', '--steps', '12', '--eval_every', '6']
+
+
+def max_gap(got, want) -> float:
+    """The largest ``|got - want|`` over pairs of tensors."""
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
+def gat_kernel_case(lay, hw, a_src, a_dst, s_src, s_dst, flush):
+    """Both GAT kernels at one layer's shape: bit-equal to their plain
+    versions, a second launch bit-equal to the first, timed (L2 flushed)
+    beside the byte bounds of ``portbench/counts_gat.py``'s rule (each
+    input read once, each output written once)."""
+    from pna_tpu_torch.ops import csr_gat as cg
+    n, heads = s_dst.shape
+    f, e = hw.shape[1] // heads, lay.n_edges
+    fwd = cg.csr_gat_attend(hw, s_src, s_dst, lay)
+    again = cg.csr_gat_attend(hw, s_src, s_dst, lay)
+    plain = cg.csr_gat_attend_plain(hw, s_src, s_dst, lay)
+    err = dict(fwd=max_gap(fwd, plain))
+    if not all(torch.equal(a, b) and torch.equal(c, a)
+               for a, b, c in zip(fwd, plain, again)):
+        raise AssertionError(f"csr_gat_attend {heads} x {f}: the kernel "
+                             "differs from its plain version or itself")
+    del plain, again
+    d_out = torch.randn(fwd[0].shape, device=hw.device)
+    args = (hw, s_src, s_dst, *fwd, a_src, a_dst, d_out, lay)
+    bwd = cg.csr_gat_attend_bwd(*args)
+    again = cg.csr_gat_attend_bwd(*args)
+    plain = cg.csr_gat_attend_bwd_plain(*args)
+    err['bwd'] = max_gap(bwd, plain)
+    if not all(torch.equal(a, b) and torch.equal(c, a)
+               for a, b, c in zip(bwd, plain, again)):
+        raise AssertionError(f"csr_gat_attend_bwd {heads} x {f}: the kernel "
+                             "differs from its plain version or itself")
+    del plain, again
+    rows, hf = lay.n_table * heads * f, heads * f
+    fwd_bytes = 4 * (rows + n * hf + lay.n_table * heads + 3 * n * heads
+                     + e + n + 1)
+    bwd_bytes = 4 * (2 * rows + 2 * n * hf + 2 * lay.n_table * heads
+                     + 4 * n * heads + 2 * hf + e + n + 1)
+    out = dict(heads=heads, f=f, nodes=n, edges=e, split_senders=lay.n_split)
+    for name, fn, nbytes, ops, pfn in (
+            ("fwd", lambda: cg.csr_gat_attend(hw, s_src, s_dst, lay),
+             fwd_bytes, 2 * (e + n) * hf,
+             lambda: cg.csr_gat_attend_plain(hw, s_src, s_dst, lay)),
+            ("bwd", lambda: cg.csr_gat_attend_bwd(*args), bwd_bytes,
+             4 * (e + n) * hf, lambda: cg.csr_gat_attend_bwd_plain(*args))):
+        bound, by = bound_ms(nbytes, ops)
+        out[name] = dict(ms=time_cuda(fn, flush, reps=5), bound_ms=bound,
+                         bound_by=by, plain_ms=time_cuda(pfn, flush, reps=1),
+                         max_abs_err=err[name])
+        torch.cuda.empty_cache()
+    return out
+
+
+def gat_phase(dev):
+    """The GAT attention kernels (``ops/csr_gat.py``) at the GAT cell's two
+    layer shapes (4 x 256 and 6 x 121, 625,000 receivers, 6.25M power-law
+    edges with a sender of ~38% of them): bit-equal to their plain
+    versions, twice, timed beside their byte bounds; then
+    ``cli.train_largegraph.main --model gat --d_graph 1`` on 100,000 nodes
+    and 1M edges at the PPI widths: the loss falls, 3 forward launches a
+    train step and an evaluation, 3 backward launches a train step, the row
+    sum twice a train step (the backward of the halo exchange's send
+    gather before the two later layers, whose inputs take a gradient), no
+    launch of K1-K4 or the edge messages."""
+    from pna_tpu_torch.ops import csr_gat as cg
+    flush = flush_buffer(dev)
+    cases = []
+    for heads, f in GAT_LAYERS:
+        case = timing.gat_case(*GAT_CELL, heads, f, dev)
+        r = gat_kernel_case(*case, flush)
+        cases.append(r)
+        log(f"kernels[gat attention {heads} x {f}] N={r['nodes']} "
+            f"E={r['edges']} ({r['split_senders']} split senders): forward "
+            f"{r['fwd']['ms']:.3f} ms (bound {r['fwd']['bound_ms']:.3f}, "
+            f"plain {r['fwd']['plain_ms']:.1f}), backward "
+            f"{r['bwd']['ms']:.3f} ms (bound {r['bwd']['bound_ms']:.3f}, "
+            f"plain {r['bwd']['plain_ms']:.1f}); equal to plain, twice")
+        del case
+        torch.cuda.empty_cache()
+    del flush
+    cg.reset_launch_counts()
+    fk.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, hist = train_largegraph_cli.main(GAT_ARGV)
+    torch.cuda.synchronize()
+    counts, pna = cg.launch_counts(), fk.launch_counts()
+    steps, evals = 12, 2
+    want = {'csr_gat_attend': 3 * (steps + evals),
+            'csr_gat_attend_bwd': 3 * steps}
+    want_pna = dict.fromkeys(pna, 0)
+    want_pna[ROW_SUM] = 2 * HALO_ROWSUM * steps
+    if counts != want or pna != want_pna:
+        raise AssertionError(f"largegraph CLI --model gat: launches "
+                             f"{counts} and {pna}, expected {want} and "
+                             f"{want_pna}")
+    losses = [h['train_loss'] for h in hist]
+    if not (losses[-1] < losses[0] and all(map(math.isfinite, losses))):
+        raise AssertionError(f"largegraph CLI --model gat: train losses "
+                             f"{losses}")
+    sps = lg_steps_per_s(hist)
+    log(f"largegraph CLI --model gat (100k nodes, 1M edges, PPI widths): "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, {sps:.2f} steps/s, "
+        f"launches {counts}, row sum {pna[ROW_SUM]}")
+    cli = dict(first_loss=losses[0], last_loss=losses[-1], steps_per_s=sps,
+               launches=counts)
+    rows = []
+    for name, part, calls in (("csr_gat_attend", "fwd", steps + evals),
+                              ("csr_gat_attend_bwd", "bwd", steps)):
+        rows.append({
+            "name": name, "route": "cuda", "source": GAT_SOURCE,
+            "replaces": None, "launches_per_step": counts[name] / calls,
+            "max_abs_err": max(c[part]["max_abs_err"] for c in cases),
+            "ms": cases[0][part]["ms"],
+            "plain_ms": cases[0][part]["plain_ms"],
+            "bound_ms": cases[0][part]["bound_ms"],
+            "bound_by": cases[0][part]["bound_by"], "library_ms": None,
+            "cell_shapes": [dict({k: c[k] for k in ("heads", "f", "nodes",
+                                                     "edges")}, **c[part])
+                            for c in cases],
+            "cli_launches": counts[name]})
+    return rows, cli
 
 
 def same_bits(name, make, run):
@@ -3380,6 +3519,7 @@ def main():
     largegraph, lk = largegraph_phase(dev, card)
     sparse_pl, sparse_launches = sparse_powerlaw_phase(dev, card)
     bench_res = bench_phase(dev, card)
+    gat_rows, gat_cli = gat_phase(dev)
 
     kernels = []
     for name, (src, tpu) in (*SOURCES.items(), (MSG, (MSG_SOURCE, None))):
@@ -3415,6 +3555,7 @@ def main():
             label: r["launches_per_step"][name]
             for label, r in bench_res["table"].items()}
         kernels.append(row)
+    kernels += gat_rows
     summary = {kind: {key: val for key, val in pr.items()
                       if key != "launches"}
                for kind, pr in pipeline.items()}
@@ -3428,7 +3569,7 @@ def main():
                         **{f"sparse_powerlaw {c}": sparse_pl[c]['same_bits']
                            for c in SP_FULL_HOLD}),
                     "layouts": layouts, "largegraph": largegraph,
-                    "sparse_powerlaw": sparse_pl,
+                    "sparse_powerlaw": sparse_pl, "gat_cli": gat_cli,
                     "bench": {k: v for k, v in bench_res.items()
                               if k not in ("defaults", "variants")}},
                    default=str))

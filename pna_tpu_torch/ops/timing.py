@@ -367,6 +367,29 @@ def time_edge_message(dev) -> dict:
     return out
 
 
+def gat_case(n, e, heads, f, dev, seed=0, seg=None):
+    """A GAT layer's attention inputs at (n receivers, e edges): the large
+    graph's power-law senders (``partition.powerlaw_graph``, exponent 1.5:
+    a sender of ~38% of the edges), uniform receivers, sorted by receiver;
+    its ``ops/csr_gat.py::GATLayout`` (senders cut at ``seg``), hw [n,
+    heads f], the attention vectors and their scores, from ``seed``."""
+    from pna_tpu_torch.ops import csr_gat
+    from pna_tpu_torch.parallel.partition import powerlaw_graph
+    send, recv = powerlaw_graph(n, e, seed=seed, exponent=1.5)
+    order = np.argsort(recv, kind='stable')
+    ptr = np.searchsorted(recv[order], np.arange(n + 1)).astype(np.int32)
+    lay = csr_gat.build_gat_layout(
+        torch.from_numpy(ptr).to(dev),
+        torch.from_numpy(send[order].astype(np.int32)).to(dev), n,
+        seg=seg or csr_gat.SEG)
+    gen = torch.Generator().manual_seed(seed)
+    hw = torch.randn(n, heads * f, generator=gen).to(dev)
+    a_src = (torch.randn(heads, f, generator=gen) / f ** 0.5).to(dev)
+    a_dst = (torch.randn(heads, f, generator=gen) / f ** 0.5).to(dev)
+    s_src, s_dst = csr_gat.head_scores(hw, a_src, a_dst, n)
+    return lay, hw, a_src, a_dst, s_src, s_dst
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():

@@ -42,6 +42,7 @@ from torch import nn
 from pna_tpu_torch.device import DeviceLike, resolve_device
 from pna_tpu_torch.graph import Graph
 from pna_tpu_torch.nn.fused import PNALayerFused
+from pna_tpu_torch.nn.gat import GATLayerCSR
 from pna_tpu_torch.nn.layers import MLPReadout, dense, lecun_normal, zeros_init
 from pna_tpu_torch.ops import csr_bank
 from pna_tpu_torch.parallel import collectives
@@ -58,7 +59,10 @@ class DistributedPNANet(nn.Module):
     ``graph_group`` (the graph axis' process group) and ``bn_group`` (the
     batch-norm statistics', the whole mesh) make it distributed: ``forward``
     then takes this rank's ``send_idx``/``send_mask``.  Without them it runs
-    on one device (the oracle)."""
+    on one device (the oracle).  Node-level, it is trained against one
+    target a node under a squared error (``loss``)."""
+
+    loss = 'mse'
 
     def __init__(self, feat_dim: int, hidden_dim: int = 64,
                  out_dim: int = 64, n_layers: int = 4, towers: int = 4,
@@ -140,6 +144,75 @@ class DistributedPNANet(nn.Module):
             s = collectives.all_reduce(s, self.graph_group)
             c = collectives.all_reduce(c, self.graph_group)
         return self.MLP_layer(s / torch.clamp(c, min=1.0))[0]
+
+
+class DistributedGATNet(nn.Module):
+    """GAT (arXiv:1710.10903) for one partitioned graph, on the layout and
+    halo exchange of ``DistributedPNANet``: L ``nn/gat.py::GATLayerCSR``
+    layers, ``heads[l]`` heads of ``head_dim[l]`` each, concatenated with
+    ELU but the last, whose heads are averaged into the logits of
+    ``head_dim[-1]`` labels; ``residual_layers`` take the skip connection.
+    The defaults are the paper's PPI model (section 3.3): 4 x 256, 4 x 256
+    with the skip connection, 6 x 121 averaged.
+
+    Before every layer the node features are exchanged
+    (``partition.halo_exchange``) and the layer projects its sender table
+    (the part's rows, then the halo's); without ``graph_group`` it runs on
+    one device.  Node-level, on the ``csr`` layout only (``part_tables``
+    builds it); the constructor's ``seed`` draws the weights.  It is
+    trained against ``head_dim[-1]`` binary labels a node under a sigmoid
+    cross-entropy (``loss``)."""
+
+    loss = 'bce'
+    kernel = 'csr'
+    overlap = False
+    edge_features = False
+    node_level = True
+
+    def __init__(self, feat_dim: int = 50, heads: Sequence[int] = (4, 4, 6),
+                 head_dim: Sequence[int] = (256, 256, 121),
+                 residual_layers: Sequence[int] = (1,), graph_group=None,
+                 device: DeviceLike = None, seed: int = 0):
+        super().__init__()
+        if len(heads) != len(head_dim) or not heads:
+            raise ValueError(f"heads {heads} and head_dim {head_dim}")
+        device = resolve_device(device)
+        gen = torch.Generator().manual_seed(seed)
+        self.graph_group = graph_group
+        last, width, layers = len(heads) - 1, feat_dim, []
+        for i, (h, f) in enumerate(zip(heads, head_dim)):
+            layers.append(GATLayerCSR(
+                width, h, f, concat=i < last, residual=i in residual_layers,
+                elu=i < last, device='cpu', generator=gen))
+            width = h * f
+        self.layers = nn.ModuleList(layers)
+        self.to(device)
+
+    def forward(self, graph: Graph, h: torch.Tensor,
+                send_idx: Optional[torch.Tensor] = None,
+                send_mask: Optional[torch.Tensor] = None,
+                split=None, e: Optional[torch.Tensor] = None,
+                layout: Optional[csr_bank.CSRLayout] = None
+                ) -> torch.Tensor:
+        """h [Nl, feat_dim] -> logits [Nl, head_dim[-1]].  ``layout``: the
+        part's CSR layout (built here when not given); ``split`` and ``e``
+        (``PartTables.net_kwargs``) must be None."""
+        if split is not None or e is not None:
+            raise ValueError("DistributedGATNet takes no overlap split and "
+                             "no edge features")
+        distributed = send_idx is not None
+        if distributed and self.graph_group is None:
+            raise ValueError("send_idx needs a net built with graph_group")
+        if layout is None:
+            layout = csr_bank.layout_from_graph(graph)
+        for layer in self.layers:
+            table = None
+            if distributed:
+                halo = halo_exchange(h, send_idx, send_mask,
+                                     self.graph_group)
+                table = torch.cat([h, halo])
+            h = layer(h, layout, sender_table=table)
+        return h
 
 
 def _local_graph(nl: int, senders_l, receivers_l, edge_mask, node_mask,
@@ -250,7 +323,7 @@ class PartTables:
         return kw
 
 
-def part_tables(part: EdgePartition, net: DistributedPNANet, index: int,
+def part_tables(part: EdgePartition, net, index: int,
                 device, efeats: Optional[np.ndarray] = None) -> PartTables:
     """Part ``index``'s tables on ``device`` (the counterpart of placing
     ``_const_tables`` sharded over the graph axis and reading one shard)."""

@@ -7,7 +7,10 @@ the host, on transductive train/validation node masks; a JSONL curve,
 checkpoint and resume (with the early-stop state), and an early stop on the
 validation loss.  Each record of the curve carries its train step's time
 (``step_s``, host clock, ending when the loss is read off the device;
-evaluations are outside it).
+evaluations are outside it).  ``model='gat'`` trains the GAT paper's PPI
+model (``ppi_gat_config``) on the same partition, tables and halo
+exchange, against binary labels a node (its last layer's head width)
+under a sigmoid cross-entropy.
 
 One process per rank (``parallel/multihost.py``): run it in one process for
 one rank, or under ``torchrun --nproc_per_node N`` for N.  ``d_data *
@@ -30,10 +33,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.nn import functional as F
 
 from pna_tpu_torch.ops.layout import choose_layout, device_budget_bytes
 from pna_tpu_torch.parallel import collectives, multihost
-from pna_tpu_torch.parallel.distributed_net import (DistributedPNANet,
+from pna_tpu_torch.parallel.distributed_net import (DistributedGATNet,
+                                                    DistributedPNANet,
                                                     mesh_groups, part_tables)
 from pna_tpu_torch.parallel.partition import (EdgePartition,
                                               bucketize_partition,
@@ -45,6 +50,7 @@ from pna_tpu_torch.utils.checkpoint import (CheckpointManager,
 from pna_tpu_torch.utils.profiling import StepTimer, span
 
 KERNELS = ('auto', 'bucketed', 'generic', 'csr', 'csr_fused')
+MODELS = ('pna', 'gat')
 
 
 def neighbor_stats_labels(senders: np.ndarray, receivers: np.ndarray,
@@ -67,17 +73,45 @@ def neighbor_stats_labels(senders: np.ndarray, receivers: np.ndarray,
     return y.astype(np.float32)
 
 
+def neighbor_mean_labels(senders: np.ndarray, receivers: np.ndarray,
+                         feats: np.ndarray, num_nodes: int, label_dim: int,
+                         seed: int = 0) -> np.ndarray:
+    """``label_dim`` binary labels a node, on the host: with q = x P (P
+    [F, 8] standard normal from ``seed``) and its mean over each node's
+    in-neighbours and itself,
+
+        y_ic = 1[(mean_{j in N(i) + i} q_j) . r_c > 0]
+
+    (r_c [8] standard normal): learnable by attention that spreads over a
+    node's neighbourhood, and a GAT's uniform weights are that mean.
+    [N, label_dim] float32."""
+    rng = np.random.RandomState(seed)
+    proj = rng.randn(feats.shape[1], 8)
+    mix = rng.randn(8, label_dim)
+    q = feats.astype(np.float64) @ proj
+    s = q.copy()
+    for c in range(q.shape[1]):
+        s[:, c] += np.bincount(receivers, weights=q[senders, c],
+                               minlength=num_nodes)
+    deg = np.bincount(receivers, minlength=num_nodes).astype(np.float64)
+    return ((s / (deg + 1.0)[:, None]) @ mix > 0).astype(np.float32)
+
+
 def make_node_train_step(part: EdgePartition, mesh, net: DistributedPNANet,
                          optimizer: torch.optim.Optimizer,
                          efeats: Optional[np.ndarray] = None):
-    """Node-level masked-MSE train and evaluation steps over the mesh.
+    """Node-level masked train and evaluation steps over the mesh, for a
+    ``DistributedPNANet`` or a ``DistributedGATNet``.
 
     Returns ``(step, evaluate, tables)``:
 
     * ``step(feats, targets, mask) -> loss``: this rank's part (``feats``
       [Nl, F], ``targets``/``mask`` [Nl]); the loss is the squared error over
       the masked nodes of every part over their count, averaged over the
-      data axis (a float, the same on every rank);
+      data axis (a float, the same on every rank).  For a net whose
+      ``loss`` is 'bce' (``targets`` [Nl, C] of 0 and 1, the net's logits
+      [Nl, C]): the labels' sigmoid cross-entropy summed over the masked
+      nodes of every part over C times their count;
     * ``evaluate(feats, targets, mask) -> loss``: the same objective in eval
       mode (the running batch-norm statistics), without gradients;
     * ``tables``: this rank's ``PartTables`` (its CSR layout, built once).
@@ -91,6 +125,7 @@ def make_node_train_step(part: EdgePartition, mesh, net: DistributedPNANet,
     collective left out (the single-device semantics)."""
     if not net.node_level:
         raise ValueError("make_node_train_step needs node_level=True")
+    bce = net.loss == 'bce'
     grouped = mesh is not None
     if grouped:
         data_group, graph_group, (_, gi) = mesh_groups(mesh)
@@ -109,8 +144,14 @@ def make_node_train_step(part: EdgePartition, mesh, net: DistributedPNANet,
     def objective(feats, targets, mask):
         pred = net(tables.graph, feats, **kw)
         m = mask.to(pred.dtype)
-        se = psum((((pred - targets) ** 2) * m).sum(), graph_group)
-        cnt = psum(m.sum(), graph_group)
+        if bce:
+            err = F.binary_cross_entropy_with_logits(pred, targets,
+                                                     reduction='none')
+            se = psum((err.sum(1) * m).sum(), graph_group)
+            cnt = psum(m.sum() * pred.shape[1], graph_group)
+        else:
+            se = psum((((pred - targets) ** 2) * m).sum(), graph_group)
+            cnt = psum(m.sum(), graph_group)
         return se / torch.clamp(cnt, min=1.0)
 
     def mean_over_data(loss) -> float:
@@ -140,7 +181,14 @@ def make_node_train_step(part: EdgePartition, mesh, net: DistributedPNANet,
 
 @dataclass
 class LargeGraphConfig:
-    """The trainer's configuration (CLI: ``cli/train_largegraph.py``)."""
+    """The trainer's configuration (CLI: ``cli/train_largegraph.py``).
+    ``model`` 'pna' (``DistributedPNANet``: hidden_dim .. max_degree) or
+    'gat' (``DistributedGATNet``: heads, head_dim, residual_layers; the
+    ``csr`` layout whatever ``kernel`` says; ``ppi_gat_config`` gives the
+    paper's PPI model).  ``loss`` and ``label_dim`` follow from the model:
+    'mse' against the neighbour statistics (1), or 'bce' against binary
+    labels (``neighbor_mean_labels``) as many as the last layer's head
+    width."""
     num_nodes: int = 100_000
     num_edges: int = 1_000_000
     graph_kind: str = 'powerlaw'          # 'powerlaw' | 'uniform'
@@ -169,17 +217,45 @@ class LargeGraphConfig:
     ckpt_dir: Optional[str] = None
     resume: bool = False
     max_degree: int = 0
+    model: str = 'pna'                    # one of MODELS
+    heads: Sequence[int] = (4, 4, 6)      # GAT: heads of each layer
+    head_dim: Sequence[int] = (256, 256, 121)
+    residual_layers: Sequence[int] = (1,)
+
+    @property
+    def loss(self) -> str:
+        return 'bce' if self.model == 'gat' else 'mse'
+
+    @property
+    def label_dim(self) -> int:
+        return self.head_dim[-1] if self.model == 'gat' else 1
+
+
+def ppi_gat_config(**overrides) -> LargeGraphConfig:
+    """The GAT paper's inductive PPI model (arXiv:1710.10903, section 3.3)
+    on the large graph: 3 layers, 4 x 256 concatenated, 4 x 256 with the
+    skip connection, 6 x 121 averaged; 50 input features, 121 labels under
+    a sigmoid cross-entropy; Adam at lr 0.005, no weight decay; the
+    ``csr`` layout."""
+    cfg = dict(model='gat', kernel='csr', feat_dim=50, heads=(4, 4, 6),
+               head_dim=(256, 256, 121), residual_layers=(1,), lr=0.005,
+               weight_decay=0.0)
+    cfg.update(overrides)
+    return LargeGraphConfig(**cfg)
 
 
 def build_problem(cfg: LargeGraphConfig, device=None):
     """The graph, its partition (in the layout of the kernel), the node
     features, labels, masks and edge features, on the host: (part, feats
-    [P, Nl, F], labels [P, Nl], train_mask, val_mask, efeats [P, El, Fe] or
+    [P, Nl, F], labels [P, Nl] (or [P, Nl, C]), train_mask, val_mask,
+    efeats [P, El, Fe] or
     None, avg_d, kernel).  ``device`` is where the step runs (None: this
     rank's card); under ``kernel='auto'`` it gives ``choose_layout`` its
     budget and whether the CSR kernels run there."""
     if cfg.kernel not in KERNELS:
         raise ValueError(f"kernel {cfg.kernel!r} not in {KERNELS}")
+    if cfg.model not in MODELS:
+        raise ValueError(f"model {cfg.model!r} not in {MODELS}")
     rng = np.random.RandomState(cfg.seed)
     if cfg.graph_kind == 'powerlaw':
         send, recv = powerlaw_graph(cfg.num_nodes, cfg.num_edges,
@@ -192,7 +268,7 @@ def build_problem(cfg: LargeGraphConfig, device=None):
 
     part = partition_edges(send, recv, cfg.num_nodes, cfg.d_graph)
 
-    kernel = cfg.kernel
+    kernel = 'csr' if cfg.model == 'gat' else cfg.kernel
     if kernel == 'auto':
         # fed the heaviest part's edges: under skew one part can hold far
         # more than E/P edges, and its layout must fit its own card
@@ -215,7 +291,11 @@ def build_problem(cfg: LargeGraphConfig, device=None):
         part = sort_partition_edges(part)
 
     feats = rng.randn(cfg.num_nodes, cfg.feat_dim).astype(np.float32)
-    labels = neighbor_stats_labels(send, recv, feats, cfg.num_nodes)
+    if cfg.model == 'gat':
+        labels = neighbor_mean_labels(send, recv, feats, cfg.num_nodes,
+                                      cfg.label_dim, cfg.seed)
+    else:
+        labels = neighbor_stats_labels(send, recv, feats, cfg.num_nodes)
     deg = np.bincount(recv, minlength=cfg.num_nodes).astype(np.float64)
     d = np.maximum(deg, 1.0)
     avg_d = {'lin': float(np.mean(d)), 'log': float(np.mean(np.log(d + 1))),
@@ -229,7 +309,10 @@ def build_problem(cfg: LargeGraphConfig, device=None):
                                   )[..., 0].astype(bool)
     train_mask, val_mask = nm & ~val_p, nm & val_p
     feats_p = part.scatter_features(feats)                      # [P, Nl, F]
-    labels_p = part.scatter_features(labels[:, None])[..., 0]   # [P, Nl]
+    if labels.ndim == 1:
+        labels_p = part.scatter_features(labels[:, None])[..., 0]   # [P, Nl]
+    else:
+        labels_p = part.scatter_features(labels)                # [P, Nl, C]
 
     efeats = None
     if cfg.edge_feat_dim:
@@ -270,15 +353,22 @@ def _train(cfg: LargeGraphConfig, dev: torch.device,
     _, graph_group, (_, gi) = mesh_groups(mesh)
     (part, feats_p, labels_p, train_mask, val_mask, efeats, avg_d,
      kernel) = build_problem(cfg, dev)
-    net = DistributedPNANet(
-        cfg.feat_dim, hidden_dim=cfg.hidden_dim, out_dim=cfg.out_dim,
-        n_layers=cfg.n_layers, towers=cfg.towers,
-        aggregators=tuple(cfg.aggregators), scalers=tuple(cfg.scalers),
-        avg_d=avg_d, batch_norm=cfg.batch_norm, residual=True,
-        kernel=kernel, edge_features=efeats is not None,
-        edge_dim=cfg.edge_feat_dim, node_level=True,
-        max_degree=cfg.max_degree, graph_group=graph_group,
-        bn_group=dist.group.WORLD, device=dev, seed=cfg.seed)
+    if cfg.model == 'gat':
+        net = DistributedGATNet(
+            cfg.feat_dim, heads=tuple(cfg.heads),
+            head_dim=tuple(cfg.head_dim),
+            residual_layers=tuple(cfg.residual_layers),
+            graph_group=graph_group, device=dev, seed=cfg.seed)
+    else:
+        net = DistributedPNANet(
+            cfg.feat_dim, hidden_dim=cfg.hidden_dim, out_dim=cfg.out_dim,
+            n_layers=cfg.n_layers, towers=cfg.towers,
+            aggregators=tuple(cfg.aggregators), scalers=tuple(cfg.scalers),
+            avg_d=avg_d, batch_norm=cfg.batch_norm, residual=True,
+            kernel=kernel, edge_features=efeats is not None,
+            edge_dim=cfg.edge_feat_dim, node_level=True,
+            max_degree=cfg.max_degree, graph_group=graph_group,
+            bn_group=dist.group.WORLD, device=dev, seed=cfg.seed)
     if init_state is not None:
         net.load_state_dict(init_state)
     opt = (torch.optim.AdamW(net.parameters(), lr=cfg.lr,

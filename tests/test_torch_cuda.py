@@ -32,9 +32,13 @@ version at chip_smoke.py's shapes, five launches bit-equal to each other
 and to the plain version's order on the CPU, a gradient through
 ``gather_rows`` and ``segment_sum`` bit-equal in two runs, and a
 large-graph trainer resume on the card equal to the straight run bit for
-bit.  Every launch count held includes the row sum's (``_launches``).  The
-last holds the large-graph step's spans (``utils/profiling.py::span``):
-their device time against the profiler's busy time."""
+bit.  Every launch count held includes the row sum's (``_launches``).  One
+holds the large-graph step's spans (``utils/profiling.py::span``): their
+device time against the profiler's busy time.  The last hold the GAT
+attention kernels (``ops/csr_gat.py``) bit for bit against their plain
+versions, twice, at the GAT cell's layers and on split sender hubs, and
+the GAT training step's launches (3 forward and 3 backward a step, no
+PNA kernel) and its repetition bit for bit."""
 
 import numpy as np
 import pytest
@@ -1500,3 +1504,115 @@ def test_cuda_edge_message_launches_once_a_layer_on_csr(kernel):
     assert np.isfinite(loss)
     assert fk.launch_counts()['csr_edge_message'] == (
         4 if kernel == 'csr' else 0)
+
+
+# -- GAT attention (ops/csr_gat.py, csrc/csr_gat_attend.cu) ------------------
+
+
+def _hold_gat(lay, hw, a_src, a_dst, s_src, s_dst, seed=1):
+    """Both kernels equal to their plain versions bit for bit, and a second
+    launch of each equal to the first."""
+    from pna_tpu_torch.ops import csr_gat as cg
+    fwd = cg.csr_gat_attend(hw, s_src, s_dst, lay)
+    again = cg.csr_gat_attend(hw, s_src, s_dst, lay)
+    plain = cg.csr_gat_attend_plain(hw, s_src, s_dst, lay)
+    for got, twice, want in zip(fwd, again, plain):
+        assert torch.equal(got, want) and torch.equal(twice, got)
+    d_out = torch.randn(fwd[0].shape, generator=torch.Generator()
+                        .manual_seed(seed)).to(hw.device)
+    bwd = cg.csr_gat_attend_bwd(hw, s_src, s_dst, *fwd, a_src, a_dst, d_out,
+                                lay)
+    again = cg.csr_gat_attend_bwd(hw, s_src, s_dst, *fwd, a_src, a_dst,
+                                  d_out, lay)
+    plain = cg.csr_gat_attend_bwd_plain(hw, s_src, s_dst, *fwd, a_src, a_dst,
+                                        d_out, lay)
+    for got, twice, want in zip(bwd, again, plain):
+        assert torch.equal(got, want) and torch.equal(twice, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,f", [(4, 256), (6, 121)])
+def test_cuda_gat_attend_matches_plain_at_the_cell(heads, f):
+    """The GAT cell's layers (625,000 receivers, 6.25M power-law edges):
+    forward and backward bit-equal to the plain versions, twice."""
+    _need_card()
+    from pna_tpu_torch.ops.timing import gat_case
+    _hold_gat(*gat_case(625_000, 6_250_000, heads, f, 'cuda'))
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,f,seg", [(4, 8, 3), (6, 5, 3), (2, 40, 8),
+                                         (3, 121, 128), (4, 256, 2)])
+def test_cuda_gat_attend_split_hubs_match_plain(heads, f, seg):
+    """The CPU tests' layout (a hub of ~40% of the edges, a node with no
+    in-edges, ghost sender rows past N) and a power-law one cut in
+    segments of ``seg``: split hubs merged in runs of several slots, every
+    head width's lane slots; bit-equal to plain, twice."""
+    from tests.test_torch_gat_kernels import attention_case
+    _need_card()
+    c = attention_case(heads, f, seg=seg)
+    lay = c['lay']
+    dev = torch.device('cuda')
+    from pna_tpu_torch.ops import csr_gat as cg
+    lay_d = cg.build_gat_layout(lay.ptr.to(dev), lay.senders.to(dev),
+                                lay.n_table, seg=seg)
+    _hold_gat(lay_d, *(c[k].to(dev) for k in ('hw', 'a_src', 'a_dst',
+                                              's_src', 's_dst')))
+    from pna_tpu_torch.ops.timing import gat_case
+    big = gat_case(20_000, 200_000, heads, f, 'cuda', seed=3, seg=seg)
+    assert big[0].n_split > 0
+    _hold_gat(*big)
+
+
+def _gat_step(device, seed=0):
+    from pna_tpu_torch.parallel.distributed_net import DistributedGATNet
+    from pna_tpu_torch.parallel.partition import (partition_edges,
+                                                  sort_partition_edges)
+    from pna_tpu_torch.train.largegraph import (make_node_train_step,
+                                                neighbor_mean_labels)
+    rng = np.random.RandomState(seed)
+    n, e = 3000, 30000
+    w = np.arange(1, n + 1, dtype=np.float64) ** -1.5
+    send = rng.permutation(n)[rng.choice(n, size=e, p=w / w.sum())]
+    recv = rng.randint(0, n, e)
+    feats = rng.randn(n, 50).astype(np.float32)
+    labels = neighbor_mean_labels(send, recv, feats, n, 121, seed)
+    part = sort_partition_edges(partition_edges(send, recv, n, 1))
+    net = DistributedGATNet(50, device=device, seed=seed)
+    opt = torch.optim.Adam(net.parameters(), lr=0.005)
+    step, _, _ = make_node_train_step(part, None, net, opt)
+
+    def mine(x):
+        return torch.as_tensor(np.ascontiguousarray(x[0])).to(device)
+
+    x = mine(part.scatter_features(feats))
+    y = mine(part.scatter_features(labels))
+    mask = mine(part.node_mask)
+    return net, lambda: step(x, y, mask)
+
+
+@pytest.mark.cuda
+def test_cuda_gat_step_launches_and_repeats():
+    """The PPI widths' training step on the card: one forward and one
+    backward launch a layer (3 and 3 a step), no launch of K1-K4, the row
+    sum or the edge messages; the loss the CPU step's; two runs from the
+    same seed bit-equal in every weight after 3 steps."""
+    from pna_tpu_torch.ops import csr_gat as cg
+    _need_card()
+    states = []
+    for run in range(2):
+        net, step = _gat_step('cuda')
+        cg.reset_launch_counts()
+        fk.reset_launch_counts()
+        losses = [step() for _ in range(3)]
+        torch.cuda.synchronize()
+        assert cg.launch_counts() == {'csr_gat_attend': 9,
+                                      'csr_gat_attend_bwd': 9}
+        assert fk.launch_counts() == _launches()
+        states.append({k: v.detach().clone()
+                       for k, v in net.state_dict().items()})
+    for k, v in states[0].items():
+        assert torch.equal(v, states[1][k]), k
+    _, cpu_step = _gat_step('cpu')
+    np.testing.assert_allclose(losses[0], cpu_step(), rtol=1e-5)
