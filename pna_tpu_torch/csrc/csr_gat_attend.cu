@@ -14,15 +14,35 @@
 //   d_s_dst[i] = sum_j d_ij              (a receiver sum)
 //   d_s_src[j] = sum_i d_ij              (a sender sum)
 //   d_hW[j] = sum_i a_ij d_out_i + d_s_src[j] a_src + d_s_dst[j] a_dst
-// (the last term for j < N), the sums over i walked in sender order.
+// (the last term for j < N): the sums over i in sender order, d_s_dst's
+// over j in receiver order.
 //
 // Bound on this card: bytes.  At the large graph's wide layers (625,000
 // receivers, 6.25M in-edges, H = 4 heads of 256) every edge moves a 4 KB
-// row: the forward and the receiver pass read hW[j] (a power-law sender
-// table, whose hub rows stay in L2), the sender pass reads d_out[i] (random
-// rows, no reuse).  No [E, H*F] tensor is ever written: only per-edge head
-// scalars (a_ij and d_ij, [E, H]) pass from the receiver pass to the sender
-// pass, and the forward keeps only m and l ([N, H]) for the backward.
+// row: the forward reads hW[j] (a power-law sender table, whose hub rows
+// stay in L2), the backward's sender pass reads d_out[i] (random rows, no
+// reuse).  No [E, H*F] tensor is ever written, and the backward reads no
+// row a second time per edge: only the per-edge head scalars d_ij ([E, H])
+// pass from its sender pass to its receiver sums, and the forward keeps
+// only m and l ([N, H]) for the backward.
+//
+// The backward's three passes, and where each sum is formed:
+//   1. the pre-pass (gat_attend_bwd_recv_kernel), a warp a receiver:
+//      delta_i = d_out_i . out_i per head, reading out and d_out once;
+//   2. the sender pass (gat_attend_bwd_send_kernel), a warp a segment of
+//      sender j's sorted out-edges, hW_j in registers: for each edge d_out_i
+//      gathered once, a_ij from the head scalars, the dot d_out_i . hW_j,
+//      d_ij; a_ij d_out_i and d_ij summed by sender in sender order, d_ij
+//      written to de_e.  A node of one segment finishes its row there: its
+//      self term (d_jj kept in de_self), then d_s_src[j] a_src;
+//   3. a split sender's merge (gat_attend_merge_runs_kernel, then
+//      gat_attend_merge_final_kernel): its slots summed in kRuns runs, the
+//      runs in order, then its self term, d_s_dst[j] (self first, then its
+//      in-edges' d_ij in receiver order) and both score terms.  The final
+//      kernel's warps past the split senders are the post-pass: per other
+//      receiver i, d_s_dst[i] summed the same way and d_s_dst[i] a_dst added
+//      to the row the sender pass rounded and stored, which gives the float
+//      one expression would.  Halo rows (j >= N) take no self or a_dst term.
 //
 // What the design does about it:
 //   * a warp per row of work (a receiver, a sender segment, a merge run):
@@ -33,12 +53,15 @@
 //   * the forward takes the maximum over the head scalars first (4 bytes a
 //     head an edge), then one pass over the rows with the weights final, so
 //     no running sum is ever rescaled;
+//   * the sender pass loads the next edge's indices ahead of each edge's
+//     sums, and lane h computes head h's scalar terms, so a receiver's side
+//     costs four scalars a lane beside its row; register caps
+//     (kSendBlocks, kFinalBlocks) buy the warps that keep rows in flight;
 //   * the sender pass walks the senders' stable sort (the row sum's sender
-//     layout) in segments of at most SEG edges (ops/csr_gat.py).  A node of
-//     one segment writes its row; a hub's segments write partial rows to
-//     scratch, which a second kernel sums in kRuns runs and a third sums and
-//     finishes, each in a fixed order.  One writer for every output element, no atomics,
-//     so two launches give the same bits;
+//     layout) in segments of at most SEG edges (ops/csr_gat.py): a hub's
+//     segments write partial rows to scratch, which the merge sums, each in
+//     a fixed order.  One writer for every output element, no atomics, so
+//     two launches give the same bits;
 //   * every sum is __fadd_rn / __fmul_rn in a fixed order (warp sums by
 //     xor butterfly, so every lane holds the same value), and expf is the
 //     full-precision one, so ops/csr_gat.py's plain versions repeat the
@@ -64,6 +87,12 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRuns = 64;       // runs of a split sender's merge
 constexpr float kSlope = 0.2f;  // LeakyReLU's negative slope
+// Blocks an SM must hold of the sender pass and of the final kernel: caps
+// of 128 and 64 registers a thread, which buy the warps that keep rows in
+// flight.  The final kernel's split-sender warps spill under its cap; they
+// are few (715 at the GAT cell) beside its post-pass warps, a receiver each.
+constexpr int kSendBlocks = 4;
+constexpr int kFinalBlocks = 8;
 
 __device__ __forceinline__ float f_add(float a, float b) {
   return __fadd_rn(a, b);
@@ -80,14 +109,22 @@ inline float f_div(float a, float b) {
   volatile float r = a / b;
   return r;
 }
-inline float lane_xor(float v, int o) {
+// lane l's value from lane `from(l)`, through a buffer between two barriers
+template <typename From>
+inline float lane_read(float v, From from) {
   static float buf[32];
   const int l = static_cast<int>(threadIdx.x) & 31;
   buf[l] = v;
   __syncthreads();
-  const float r = buf[l ^ o];
+  const float r = buf[from(l)];
   __syncthreads();
   return r;
+}
+inline float lane_xor(float v, int o) {
+  return lane_read(v, [o](int l) { return l ^ o; });
+}
+inline float lane_get(float v, int src) {
+  return lane_read(v, [src](int) { return src; });
 }
 #else
 __device__ __forceinline__ float f_sub(float a, float b) {
@@ -98,6 +135,10 @@ __device__ __forceinline__ float f_div(float a, float b) {
 }
 __device__ __forceinline__ float lane_xor(float v, int o) {
   return __shfl_xor_sync(0xffffffffu, v, o);
+}
+// lane `src`'s v, in every lane
+__device__ __forceinline__ float lane_get(float v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
 }
 #endif
 
@@ -227,7 +268,6 @@ struct BwdArgs {
   const float* a_src;  // [H, F]
   const float* a_dst;  // [H, F]
   const float* d_out;  // [N, H*F]
-  const int* senders;  // [>= E], receiver order
   const int* ptr;      // [N+1]
   // the sender layout: the stable sort of the senders and its segments
   const int* sperm;     // [E]: receiver-order position of each sorted edge
@@ -236,18 +276,17 @@ struct BwdArgs {
   const int* seg_hi;    // [n_seg]
   const int* seg_node;  // [n_seg]
   const int* seg_slot;  // [n_seg]: -1 for a node's only segment
-  const int* split_node;  // [n_split]
+  const int* split_node;  // [n_split], ascending
   const int* split_slot;  // [n_split + 1]
   int n_seg, n_split;
   // scratch
-  float* alpha_e;     // [E, H]
-  float* de_e;        // [E, H]
-  float* alpha_self;  // [N, H]
-  float* de_self;     // [N, H]
-  float* part;        // [slots, H*F]
-  float* part_ds;     // [slots, H]
-  float* runs;        // [n_split * kRuns, H*F]
-  float* runs_ds;     // [n_split * kRuns, H]
+  float* delta;    // [N, H]: d_out_i . out_i
+  float* de_e;     // [E, H]: d_ij, receiver order
+  float* de_self;  // [N, H]: d_ii of a node finished by the sender pass
+  float* part;     // [slots, H*F]
+  float* part_ds;  // [slots, H]
+  float* runs;     // [n_split * kRuns, H*F]
+  float* runs_ds;  // [n_split * kRuns, H]
   // outputs
   float* d_hw;     // [Nt, H*F]
   float* d_s_src;  // [Nt, H]
@@ -255,9 +294,22 @@ struct BwdArgs {
   Dims d;
 };
 
-// The receiver pass: per receiver i, delta = d_out_i . out_i per head, then
-// for the self term and each in-edge the weight a_ij and d_ij (written as
-// head scalars), and d_s_dst[i], their sum.
+// A row [H*F] in lane slots (zeros past F and H).
+template <int KH, int MAXH>
+__device__ __forceinline__ void load_row(const float* row, const Dims& d,
+                                         int lane, float (&x)[MAXH][KH]) {
+#pragma unroll
+  for (int h = 0; h < MAXH; ++h) {
+#pragma unroll
+    for (int k = 0; k < KH; ++k) {
+      const int c = lane + 32 * k;
+      x[h][k] = h < d.heads && c < d.head_dim ? __ldg(row + h * d.head_dim + c)
+                                              : 0.f;
+    }
+  }
+}
+
+// The pre-pass: per receiver i and head, delta = d_out_i . out_i.
 template <int KH, int MAXH>
 __global__ void __launch_bounds__(kThreads)
 gat_attend_bwd_recv_kernel(const BwdArgs a) {
@@ -266,104 +318,140 @@ gat_attend_bwd_recv_kernel(const BwdArgs a) {
   const int lane = static_cast<int>(threadIdx.x) & 31;
   const int H = a.d.heads, F = a.d.head_dim;
   const long long HF = static_cast<long long>(H) * F;
-  const int lo = clamp_to(__ldg(a.ptr + i), 0, a.d.n_edges);
-  const int hi = clamp_to(__ldg(a.ptr + i + 1), lo, a.d.n_edges);
-  float g[MAXH][KH], sd[MAXH], mx[MAXH], den[MAXH], delta[MAXH], dsd[MAXH];
-  const float* grow = a.d_out + static_cast<long long>(i) * HF;
-  const float* orow = a.out + static_cast<long long>(i) * HF;
+  float g[MAXH][KH], o[MAXH][KH];
+  load_row<KH, MAXH>(a.d_out + i * HF, a.d, lane, g);
+  load_row<KH, MAXH>(a.out + i * HF, a.d, lane, o);
 #pragma unroll
   for (int h = 0; h < MAXH; ++h) {
-    sd[h] = mx[h] = den[h] = delta[h] = dsd[h] = 0.f;
-    float p = 0.f;
-#pragma unroll
-    for (int k = 0; k < KH; ++k) {
-      const int c = lane + 32 * k;
-      g[h][k] = 0.f;
-      if (h < H && c < F) {
-        g[h][k] = __ldg(grow + h * F + c);
-        p = f_add(p, f_mul(g[h][k], __ldg(orow + h * F + c)));
-      }
-    }
     if (h < H) {
-      delta[h] = warp_sum(p);
-      const long long at = static_cast<long long>(i) * H + h;
-      sd[h] = __ldg(a.s_dst + at);
-      mx[h] = __ldg(a.m + at);
-      den[h] = __ldg(a.l + at);
-    }
-  }
-  auto edge = [&](int j, float* alpha, float* de) {
-    const float* row = a.hw + static_cast<long long>(j) * HF;
+      float p = 0.f;
 #pragma unroll
-    for (int h = 0; h < MAXH; ++h) {
-      if (h < H) {
-        float p = 0.f;
-#pragma unroll
-        for (int k = 0; k < KH; ++k) {
-          const int c = lane + 32 * k;
-          if (c < F) p = f_add(p, f_mul(g[h][k], __ldg(row + h * F + c)));
-        }
-        const float dot = warp_sum(p);
-        const float z = f_add(
-            sd[h], __ldg(a.s_src + static_cast<long long>(j) * H + h));
-        const float al = f_div(expf(f_sub(lrelu(z), mx[h])), den[h]);
-        float dv = f_mul(al, f_sub(dot, delta[h]));
-        if (!(z > 0.f)) dv = f_mul(dv, kSlope);
-        dsd[h] = f_add(dsd[h], dv);
-        if (lane == h) {
-          alpha[h] = al;
-          de[h] = dv;
-        }
+      for (int k = 0; k < KH; ++k) {
+        if (lane + 32 * k < F) p = f_add(p, f_mul(g[h][k], o[h][k]));
       }
+      const float s = warp_sum(p);
+      if (lane == h) a.delta[static_cast<long long>(i) * H + h] = s;
     }
-  };
-  edge(i, a.alpha_self + static_cast<long long>(i) * H,
-       a.de_self + static_cast<long long>(i) * H);
-  for (int p = lo; p < hi; ++p) {
-    edge(clamp_to(__ldg(a.senders + p), 0, a.d.n_table - 1),
-         a.alpha_e + static_cast<long long>(p) * H,
-         a.de_e + static_cast<long long>(p) * H);
-  }
-#pragma unroll
-  for (int h = 0; h < MAXH; ++h) {
-    if (h < H && lane == h) a.d_s_dst[static_cast<long long>(i) * H + h] = dsd[h];
   }
 }
 
-// Sender j's row of d_hW and d_s_src from its summed edge terms: its self
-// term (j < N) added, then d_s_src[j] a_src and d_s_dst[j] a_dst.
+// Receiver i's side of an edge (i, j): d_out_i in lane slots, and lane h's
+// (h < H) head scalars s_dst, m, l and delta of i.
+template <int KH, int MAXH>
+struct Recv {
+  float g[MAXH][KH];
+  float sd, mx, den, dl;
+};
+
+template <int KH, int MAXH>
+__device__ __forceinline__ void load_recv(const BwdArgs& a, int i, int lane,
+                                          Recv<KH, MAXH>& r) {
+  load_row<KH, MAXH>(a.d_out + static_cast<long long>(i) * a.d.heads *
+                                   a.d.head_dim, a.d, lane, r.g);
+  r.sd = r.mx = r.dl = 0.f;
+  r.den = 1.f;
+  if (lane < a.d.heads) {
+    const long long at = static_cast<long long>(i) * a.d.heads + lane;
+    r.sd = __ldg(a.s_dst + at);
+    r.mx = __ldg(a.m + at);
+    r.den = __ldg(a.l + at);
+    r.dl = __ldg(a.delta + at);
+  }
+}
+
+// Edge (i, j), from r (i's side), hj (hW_j in lane slots) and ss (lane h's
+// s_src[j]): a_ij d_out_i added into acc; returns lane h's d_ij.  The
+// weight comes from head scalars alone, so the sum by sender never waits
+// for the dot products' warp sums.
+template <int KH, int MAXH>
+__device__ __forceinline__ float edge_terms(const Dims& d, int lane,
+                                            const Recv<KH, MAXH>& r,
+                                            const float (&hj)[MAXH][KH],
+                                            float ss,
+                                            float (&acc)[MAXH][KH]) {
+  const float z = f_add(r.sd, ss);
+  const float al = f_div(expf(f_sub(lrelu(z), r.mx)), r.den);
+  float dot = 0.f;
+#pragma unroll
+  for (int h = 0; h < MAXH; ++h) {
+    if (h < d.heads) {
+      const float w = lane_get(al, h);
+      float p = 0.f;
+#pragma unroll
+      for (int k = 0; k < KH; ++k) {
+        if (lane + 32 * k < d.head_dim) {
+          acc[h][k] = f_add(acc[h][k], f_mul(w, r.g[h][k]));
+          p = f_add(p, f_mul(r.g[h][k], hj[h][k]));
+        }
+      }
+      const float s = warp_sum(p);
+      if (lane == h) dot = s;
+    }
+  }
+  const float dv = f_mul(al, f_sub(dot, r.dl));
+  return z > 0.f ? dv : f_mul(dv, kSlope);
+}
+
+// d_s_dst[i] of lane h's head, stored: the self term, then i's in-edges'
+// d_ij in receiver order.
+__device__ __forceinline__ float recv_sum(const BwdArgs& a, int i, int lane,
+                                          float self) {
+  float s = f_add(0.f, self);
+  if (lane < a.d.heads) {
+    const int lo = clamp_to(__ldg(a.ptr + i), 0, a.d.n_edges);
+    const int hi = clamp_to(__ldg(a.ptr + i + 1), lo, a.d.n_edges);
+#pragma unroll 4
+    for (int p = lo; p < hi; ++p) {
+      s = f_add(s, __ldg(a.de_e + static_cast<long long>(p) * a.d.heads +
+                         lane));
+    }
+    a.d_s_dst[static_cast<long long>(i) * a.d.heads + lane] = s;
+  }
+  return s;
+}
+
+// Sender j's row of d_hW and d_s_src from its summed edge terms (ds[h] the
+// same in every lane), hj its row of hW: for j < N its self term added,
+// then d_s_src[j] a_src.  With `dst` (a split sender, finished by the merge)
+// d_s_dst[j] is summed here and d_s_dst[j] a_dst added to the rounded row;
+// without, d_jj goes to de_self and the post-pass adds that term.
 template <int KH, int MAXH>
 __device__ __forceinline__ void finish(const BwdArgs& a, int j, int lane,
+                                       const float (&hj)[MAXH][KH],
                                        float (&acc)[MAXH][KH],
-                                       float (&ds)[MAXH]) {
+                                       float (&ds)[MAXH], bool dst) {
   const int H = a.d.heads, F = a.d.head_dim;
   const long long HF = static_cast<long long>(H) * F;
   const bool local = j < a.d.n_nodes;
-  const float* grow = a.d_out + static_cast<long long>(j) * HF;
+  float dsd = 0.f;
+  if (local) {
+    Recv<KH, MAXH> r;
+    load_recv<KH, MAXH>(a, j, lane, r);
+    const float ss = lane < H ? __ldg(a.s_src + static_cast<long long>(j) * H +
+                                      lane)
+                              : 0.f;
+    const float dv = edge_terms<KH, MAXH>(a.d, lane, r, hj, ss, acc);
+#pragma unroll
+    for (int h = 0; h < MAXH; ++h) {
+      if (h < H) ds[h] = f_add(ds[h], lane_get(dv, h));
+    }
+    if (dst) {
+      dsd = recv_sum(a, j, lane, dv);
+    } else if (lane < H) {
+      a.de_self[static_cast<long long>(j) * H + lane] = dv;
+    }
+  }
   float* drow = a.d_hw + static_cast<long long>(j) * HF;
 #pragma unroll
   for (int h = 0; h < MAXH; ++h) {
     if (h < H) {
-      float dsd = 0.f;
-      if (local) {
-        const long long at = static_cast<long long>(j) * H + h;
-        const float al = __ldg(a.alpha_self + at);
-        ds[h] = f_add(ds[h], __ldg(a.de_self + at));
-        dsd = __ldg(a.d_s_dst + at);
-#pragma unroll
-        for (int k = 0; k < KH; ++k) {
-          const int c = lane + 32 * k;
-          if (c < F) {
-            acc[h][k] = f_add(acc[h][k], f_mul(al, __ldg(grow + h * F + c)));
-          }
-        }
-      }
+      const float wd = local && dst ? lane_get(dsd, h) : 0.f;
 #pragma unroll
       for (int k = 0; k < KH; ++k) {
         const int c = lane + 32 * k;
         if (c < F) {
           float t = f_add(acc[h][k], f_mul(ds[h], __ldg(a.a_src + h * F + c)));
-          if (local) t = f_add(t, f_mul(dsd, __ldg(a.a_dst + h * F + c)));
+          if (local && dst) t = f_add(t, f_mul(wd, __ldg(a.a_dst + h * F + c)));
           drow[h * F + c] = t;
         }
       }
@@ -372,11 +460,13 @@ __device__ __forceinline__ void finish(const BwdArgs& a, int j, int lane,
   }
 }
 
-// The sender pass: per segment of a sender's sorted out-edges, the sum of
-// a_ij d_out_i and of d_ij; a node's only segment finishes its row, a split
-// node's segments write partial rows.
+// The sender pass: per segment of sender j's sorted out-edges, hW_j held
+// in registers, each edge's d_out_i gathered once for both its dot
+// products (d_ij, written to de_e) and the sum of a_ij d_out_i, the next
+// edge's indices loaded ahead of each edge's sums.  A node's only
+// segment finishes its row, a split node's segments write partial rows.
 template <int KH, int MAXH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSendBlocks)
 gat_attend_bwd_send_kernel(const BwdArgs a) {
   const int s = warp_id();
   if (s >= a.n_seg) return;
@@ -387,35 +477,38 @@ gat_attend_bwd_send_kernel(const BwdArgs a) {
   const int q0 = clamp_to(__ldg(a.seg_lo + s), 0, a.d.n_edges);
   const int q1 = clamp_to(__ldg(a.seg_hi + s), q0, a.d.n_edges);
   const int slot = __ldg(a.seg_slot + s);
-  float acc[MAXH][KH], ds[MAXH];
+  float hj[MAXH][KH], acc[MAXH][KH];
+  load_row<KH, MAXH>(a.hw + j * HF, a.d, lane, hj);
+  const float ss =
+      lane < H ? __ldg(a.s_src + static_cast<long long>(j) * H + lane) : 0.f;
 #pragma unroll
   for (int h = 0; h < MAXH; ++h) {
-    ds[h] = 0.f;
 #pragma unroll
     for (int k = 0; k < KH; ++k) acc[h][k] = 0.f;
   }
-  for (int q = q0; q < q1; ++q) {
-    const int e = clamp_to(__ldg(a.sperm + q), 0, a.d.n_edges - 1);
-    const int i = clamp_to(__ldg(a.srows + q), 0, a.d.n_nodes - 1);
-    const float* grow = a.d_out + static_cast<long long>(i) * HF;
-#pragma unroll
-    for (int h = 0; h < MAXH; ++h) {
-      if (h < H) {
-        const long long at = static_cast<long long>(e) * H + h;
-        const float al = __ldg(a.alpha_e + at);
-        ds[h] = f_add(ds[h], __ldg(a.de_e + at));
-#pragma unroll
-        for (int k = 0; k < KH; ++k) {
-          const int c = lane + 32 * k;
-          if (c < F) {
-            acc[h][k] = f_add(acc[h][k], f_mul(al, __ldg(grow + h * F + c)));
-          }
-        }
-      }
+  float ds = 0.f;  // lane h's head
+  auto edge_at = [&](int q, int* e, int* i) {
+    if (q < q1) {
+      *e = clamp_to(__ldg(a.sperm + q), 0, a.d.n_edges - 1);
+      *i = clamp_to(__ldg(a.srows + q), 0, a.d.n_nodes - 1);
     }
+  };
+  int e = 0, i = 0;
+  edge_at(q0, &e, &i);
+  for (int q = q0; q < q1; ++q) {
+    Recv<KH, MAXH> r;
+    load_recv<KH, MAXH>(a, i, lane, r);
+    const int at = e;
+    edge_at(q + 1, &e, &i);  // the next edge's indices, ahead of the sums
+    const float dv = edge_terms<KH, MAXH>(a.d, lane, r, hj, ss, acc);
+    ds = f_add(ds, dv);
+    if (lane < H) a.de_e[static_cast<long long>(at) * H + lane] = dv;
   }
   if (slot < 0) {
-    finish<KH, MAXH>(a, j, lane, acc, ds);
+    float dsh[MAXH];
+#pragma unroll
+    for (int h = 0; h < MAXH; ++h) dsh[h] = h < H ? lane_get(ds, h) : 0.f;
+    finish<KH, MAXH>(a, j, lane, hj, acc, dsh, false);
     return;
   }
   float* prow = a.part + static_cast<long long>(slot) * HF;
@@ -427,9 +520,9 @@ gat_attend_bwd_send_kernel(const BwdArgs a) {
         const int c = lane + 32 * k;
         if (c < F) prow[h * F + c] = acc[h][k];
       }
-      if (lane == h) a.part_ds[static_cast<long long>(slot) * H + h] = ds[h];
     }
   }
+  if (lane < H) a.part_ds[static_cast<long long>(slot) * H + lane] = ds;
 }
 
 // A split sender's slots [s0, s1) in kRuns runs of ceil(m / kRuns) slots;
@@ -490,17 +583,61 @@ gat_attend_merge_runs_kernel(const BwdArgs a) {
   }
 }
 
-// A split sender's runs summed in order, then finished like a whole node.
+// Whether receiver i is a split sender (split_node is ascending).
+__device__ __forceinline__ bool is_split(const BwdArgs& a, int i) {
+  int lo = 0, hi = a.n_split;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(a.split_node + mid) < i) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo < a.n_split && __ldg(a.split_node + lo) == i;
+}
+
+// Warps [0, n_split): a split sender's runs summed in order, then finished
+// like a whole node, its d_s_dst and a_dst term included.  Warps past them,
+// the post-pass: receiver i (not a split sender) sums d_s_dst[i] and adds
+// d_s_dst[i] a_dst into the row the sender pass wrote.
 template <int KH, int MAXH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kFinalBlocks)
 gat_attend_merge_final_kernel(const BwdArgs a) {
-  const int q = warp_id();
-  if (q >= a.n_split) return;
+  const int w = warp_id();
   const int lane = static_cast<int>(threadIdx.x) & 31;
   const int H = a.d.heads, F = a.d.head_dim;
   const long long HF = static_cast<long long>(H) * F;
+  if (w >= a.n_split) {
+    const int i = w - a.n_split;
+    if (i >= a.d.n_nodes) return;
+    // the row and the self term in flight before the split check
+    float t[MAXH][KH];
+    load_row<KH, MAXH>(a.d_hw + i * HF, a.d, lane, t);
+    const float self =
+        lane < H ? a.de_self[static_cast<long long>(i) * H + lane] : 0.f;
+    if (is_split(a, i)) return;
+    const float dsd = recv_sum(a, i, lane, self);
+    float* drow = a.d_hw + static_cast<long long>(i) * HF;
+#pragma unroll
+    for (int h = 0; h < MAXH; ++h) {
+      if (h < H) {
+        const float wd = lane_get(dsd, h);
+#pragma unroll
+        for (int k = 0; k < KH; ++k) {
+          const int c = lane + 32 * k;
+          if (c < F) {
+            drow[h * F + c] =
+                f_add(t[h][k], f_mul(wd, __ldg(a.a_dst + h * F + c)));
+          }
+        }
+      }
+    }
+    return;
+  }
+  const int q = w;
   const int j = clamp_to(__ldg(a.split_node + q), 0, a.d.n_table - 1);
-  float acc[MAXH][KH], ds[MAXH];
+  float acc[MAXH][KH], ds[MAXH], hj[MAXH][KH];
 #pragma unroll
   for (int h = 0; h < MAXH; ++h) {
     ds[h] = 0.f;
@@ -511,12 +648,12 @@ gat_attend_merge_final_kernel(const BwdArgs a) {
     int b0, b1;
     run_of(a, q, r, &b0, &b1);
     if (b0 >= b1) break;
-    const long long w = static_cast<long long>(q) * kRuns + r;
-    const float* rrow = a.runs + w * HF;
+    const long long rw = static_cast<long long>(q) * kRuns + r;
+    const float* rrow = a.runs + rw * HF;
 #pragma unroll
     for (int h = 0; h < MAXH; ++h) {
       if (h < H) {
-        ds[h] = f_add(ds[h], __ldg(a.runs_ds + w * H + h));
+        ds[h] = f_add(ds[h], __ldg(a.runs_ds + rw * H + h));
 #pragma unroll
         for (int k = 0; k < KH; ++k) {
           const int c = lane + 32 * k;
@@ -525,7 +662,8 @@ gat_attend_merge_final_kernel(const BwdArgs a) {
       }
     }
   }
-  finish<KH, MAXH>(a, j, lane, acc, ds);
+  load_row<KH, MAXH>(a.hw + j * HF, a.d, lane, hj);
+  finish<KH, MAXH>(a, j, lane, hj, acc, ds, true);
 }
 
 unsigned blocks_for(long long warps) {
@@ -550,12 +688,16 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t st) {
   if (rc != cudaSuccess) return rc;
   send<<<dim3(blocks_for(a.n_seg)), dim3(kThreads), 0, st>>>(a);
   rc = cudaGetLastError();
-  if (rc != cudaSuccess || a.n_split == 0) return rc;
-  merge_runs<<<dim3(blocks_for(static_cast<long long>(a.n_split) * kRuns)),
-               dim3(kThreads), 0, st>>>(a);
-  rc = cudaGetLastError();
   if (rc != cudaSuccess) return rc;
-  merge_final<<<dim3(blocks_for(a.n_split)), dim3(kThreads), 0, st>>>(a);
+  if (a.n_split > 0) {
+    merge_runs<<<dim3(blocks_for(static_cast<long long>(a.n_split) * kRuns)),
+                 dim3(kThreads), 0, st>>>(a);
+    rc = cudaGetLastError();
+    if (rc != cudaSuccess) return rc;
+  }
+  merge_final<<<dim3(blocks_for(static_cast<long long>(a.n_split) +
+                                a.d.n_nodes)),
+                dim3(kThreads), 0, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -635,33 +777,32 @@ extern "C" int pna_gat_attend_fwd(const float* hw, const float* s_src,
 }
 
 // Backward: the forward's inputs, out, m and l, a_src and a_dst [H, F],
-// d_out [N, H F]; the sender layout (ops/csr_gat.py::GATLayout); scratch
-// alpha_e and de_e [E, H], alpha_self and de_self [N, H], part [slots, H F],
+// d_out [N, H F]; ptr and the sender layout (ops/csr_gat.py::GATLayout);
+// scratch delta [N, H], de_e [E, H], de_self [N, H], part [slots, H F],
 // part_ds [slots, H], runs [n_split kRuns, H F], runs_ds [n_split kRuns, H];
 // out d_hw [Nt, H F], d_s_src [Nt, H], d_s_dst [N, H], every row written.
-// Two to four kernels on `stream`; returns the first launch error.
+// Three or four kernels on `stream`; returns the first launch error.
 extern "C" int pna_gat_attend_bwd(
     const float* hw, const float* s_src, const float* s_dst, const float* out,
     const float* m, const float* l, const float* a_src, const float* a_dst,
-    const float* d_out, const int* senders, const int* ptr, const int* sperm,
-    const int* srows, const int* seg_lo, const int* seg_hi,
-    const int* seg_node, const int* seg_slot, const int* split_node,
-    const int* split_slot, int n_seg, int n_split, float* alpha_e,
-    float* de_e, float* alpha_self, float* de_self, float* part,
-    float* part_ds, float* runs, float* runs_ds, float* d_hw,
+    const float* d_out, const int* ptr, const int* sperm, const int* srows,
+    const int* seg_lo, const int* seg_hi, const int* seg_node,
+    const int* seg_slot, const int* split_node, const int* split_slot,
+    int n_seg, int n_split, float* delta, float* de_e, float* de_self,
+    float* part, float* part_ds, float* runs, float* runs_ds, float* d_hw,
     float* d_s_src, float* d_s_dst, int n_nodes, int n_table, int n_edges,
     int heads, int head_dim, void* stream) {
   const Dims d{n_nodes, n_table, n_edges, heads, head_dim};
   if (!dims_ok(d) || n_seg < n_table || n_split < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const BwdArgs a{hw,       s_src,    s_dst,      out,        m,
-                  l,        a_src,    a_dst,      d_out,      senders,
-                  ptr,      sperm,    srows,      seg_lo,     seg_hi,
-                  seg_node, seg_slot, split_node, split_slot, n_seg,
-                  n_split,  alpha_e,  de_e,       alpha_self, de_self,
-                  part,     part_ds,  runs,       runs_ds,    d_hw,
-                  d_s_src,  d_s_dst,  d};
+  const BwdArgs a{hw,       s_src,      s_dst,      out,     m,
+                  l,        a_src,      a_dst,      d_out,   ptr,
+                  sperm,    srows,      seg_lo,     seg_hi,  seg_node,
+                  seg_slot, split_node, split_slot, n_seg,   n_split,
+                  delta,    de_e,       de_self,    part,    part_ds,
+                  runs,     runs_ds,    d_hw,       d_s_src, d_s_dst,
+                  d};
   return static_cast<int>(
       dispatch(d, BwdLaunch{&a, static_cast<cudaStream_t>(stream)}));
 }

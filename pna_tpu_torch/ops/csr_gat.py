@@ -13,16 +13,24 @@ implicit self edge:
   computes ``out`` [N, H*F] and keeps the softmax's maximum ``m`` and sum
   ``l`` [N, H]; ``csr_gat_attend_bwd`` gives ``d_hw`` (with the scores'
   terms ``d_s_src a_src + d_s_dst a_dst`` added), ``d_s_src`` and
-  ``d_s_dst``: a receiver pass, then a sender pass over the senders' stable
-  sort in segments of at most ``SEG`` edges, a hub's segments merged in
-  ``RUNS`` runs in a fixed order.  Neither forms an [E, H*F] or [E, F]
-  tensor; the backward passes [E, H] head scalars between its passes.
+  ``d_s_dst`` in three passes.  A pre-pass forms ``delta_i = d_out_i .
+  out_i`` per receiver and head.  The sender pass walks the senders' stable
+  sort in segments of at most ``SEG`` edges with ``hw_j`` held: for each
+  edge it gathers ``d_out_i`` once, forms the weight a_ij from head
+  scalars, the dot ``d_out_i . hw_j`` and d_ij, sums a_ij d_out_i and d_ij
+  by sender and writes d_ij ([E, H]) in receiver order; a node of one
+  segment finishes its row there (its self term, ``d_s_src a_src``).  A
+  hub's segments are merged in ``RUNS`` runs in a fixed order, and the
+  merge's last kernel finishes the hub's row whole; its other warps are the
+  post-pass, which sums ``d_s_dst`` per receiver (self term first, then the
+  in-edges in receiver order) and adds ``d_s_dst a_dst`` to the row.  No
+  pass forms an [E, H*F] or [E, F] tensor or reads a row twice an edge.
 * ``csr_gat_attend_plain`` and ``csr_gat_attend_bwd_plain`` are the same
   functions in torch, in the kernels' order of addition (lane slots, warp
-  sums folded by halves, self first, then edges or segments in order), so
-  that on the card the kernels equal them bit for bit.  The wrappers take
-  them for tensors on the CPU; for CUDA tensors they launch the kernels or
-  raise.
+  sums folded by halves, edges or segments in order, each self term where
+  the kernel adds it), so that on the card the kernels equal them bit for
+  bit.  The wrappers take them for tensors on the CPU; for CUDA tensors
+  they launch the kernels or raise.
 * ``gat_layout`` builds (once per layout and table size, kept on the
   ``CSRLayout``) the sender side: the stable sort of the real edges'
   senders, each edge's receiver, and the segment and merge tables.
@@ -254,34 +262,25 @@ def csr_gat_attend_bwd_plain(hw, s_src, s_dst, out, m, l, a_src, a_dst,
     heads = s_dst.shape[1]
     f = hw.shape[1] // heads
     kh = lane_slots(f)
-    lo, deg = _ranges(lay.ptr, e)
-    snd = lay.senders.long()
     g = _slots(d_out, heads, kh)
+    hws = _slots(hw, heads, kh)
+    # the pre-pass
     delta = _dot(g, _slots(out, heads, kh))
 
     def terms(i, j):
-        dot = _dot(g[i], _slots(hw[j], heads, kh))
+        dot = _dot(g[i], hws[j])
         z = s_dst[i] + s_src[j]
         al = torch.exp(_lrelu(z) - m[i]) / l[i]
         dv = al * (dot - delta[i])
         return al, torch.where(z > 0, dv, dv * SLOPE)
 
-    # the receiver pass
-    own = torch.arange(n, device=hw.device)
-    alpha_self, de_self = terms(own, own)
-    dsd = torch.zeros_like(de_self) + de_self
-    alpha_e = hw.new_zeros((e, heads))
-    de_e = hw.new_zeros((e, heads))
-    for k in range(lay.max_in_degree):
-        act = torch.nonzero(deg > k).squeeze(1)
-        p = lo[act] + k
-        al, dv = terms(act, snd[p].clamp(0, nt - 1))
-        alpha_e[p], de_e[p] = al, dv
-        dsd[act] = dsd[act] + dv
-    # the sender pass, segment by segment
+    # the sender pass, segment by segment: each edge's weight, dot product
+    # and d_ij from d_out_i and hw_j
     d3 = d_out.reshape(n, heads, f)
     seg_lo = lay.seg_lo.long()
     seg_len = lay.seg_hi.long() - seg_lo
+    seg_node = lay.seg_node.long()
+    de_e = hw.new_zeros((e, heads))
     acc = hw.new_zeros((lay.n_seg, heads, f))
     ds = hw.new_zeros((lay.n_seg, heads))
     for t in range(lay.max_seg):
@@ -289,21 +288,32 @@ def csr_gat_attend_bwd_plain(hw, s_src, s_dst, out, m, l, a_src, a_dst,
         q = seg_lo[act] + t
         ed = lay.sperm[q].long().clamp(0, max(e - 1, 0))
         i = lay.srows[q].long().clamp(0, n - 1)
-        ds[act] = ds[act] + de_e[ed]
-        acc[act] = acc[act] + alpha_e[ed][..., None] * d3[i]
+        al, dv = terms(i, seg_node[act])
+        de_e[ed] = dv
+        ds[act] = ds[act] + dv
+        acc[act] = acc[act] + al[..., None] * d3[i]
     node_acc = hw.new_zeros((nt, heads, f))
     node_ds = hw.new_zeros((nt, heads))
     whole = lay.seg_slot < 0
-    node_acc[lay.seg_node[whole].long()] = acc[whole]
-    node_ds[lay.seg_node[whole].long()] = ds[whole]
+    node_acc[seg_node[whole]] = acc[whole]
+    node_ds[seg_node[whole]] = ds[whole]
     if lay.n_split:
         total, total_ds = _merge_plain(acc[~whole], ds[~whole], lay)
         node_acc[lay.split_node.long()] = total
         node_ds[lay.split_node.long()] = total_ds
-    # the self terms, then the scores' terms
+    # where each sender's row is finished: its self term, then d_s_src a_src
+    own = torch.arange(n, device=hw.device)
+    alpha_self, de_self = terms(own, own)
     node_ds[:n] = node_ds[:n] + de_self
     node_acc[:n] = node_acc[:n] + alpha_self[..., None] * d3
     t = node_acc + node_ds[..., None] * a_src
+    # the receiver sums: the self term first, then the in-edges in receiver
+    # order; d_s_dst a_dst added to the rounded row
+    lo, deg = _ranges(lay.ptr, e)
+    dsd = torch.zeros_like(de_self) + de_self
+    for k in range(lay.max_in_degree):
+        act = torch.nonzero(deg > k).squeeze(1)
+        dsd[act] = dsd[act] + de_e[lo[act] + k]
     t[:n] = t[:n] + dsd[..., None] * a_dst
     return t.reshape(nt, heads * f), node_ds, dsd
 
@@ -319,9 +329,9 @@ def _lib() -> ctypes.CDLL:
         # hw, s_src, s_dst, senders, ptr, 5 sizes, out, m, l, the stream
         lib.pna_gat_attend_fwd.argtypes = [p] * 5 + [i] * 5 + [p] * 4
         lib.pna_gat_attend_fwd.restype = i
-        # 11 inputs, 8 layout tables, n_seg, n_split, 8 scratch, 3 outputs,
-        # 5 sizes, the stream
-        lib.pna_gat_attend_bwd.argtypes = ([p] * 19 + [i] * 2 + [p] * 11
+        # 9 inputs, ptr, 8 layout tables, n_seg, n_split, 7 scratch, 3
+        # outputs, 5 sizes, the stream
+        lib.pna_gat_attend_bwd.argtypes = ([p] * 18 + [i] * 2 + [p] * 10
                                            + [i] * 5 + [p])
         lib.pna_gat_attend_bwd.restype = i
         lib.pna_gat_attend_runs.argtypes = []
@@ -389,8 +399,9 @@ def csr_gat_attend_bwd(hw, s_src, s_dst, out, m, l, a_src, a_dst, d_out,
     """The backward: the forward's inputs, its ``out``, ``m``, ``l``, the
     attention vectors a_src, a_dst [H, F] and d_out [N, H*F] float32 ->
     (d_hw [Nt, H*F], d_s_src [Nt, H], d_s_dst [N, H]), every row written.
-    One counted launch (two to four device kernels: the receiver and the
-    sender pass, and a split sender's two merge kernels)."""
+    One counted launch (three or four device kernels: the pre-pass, the
+    sender pass, a split sender's merge runs, and the kernel that finishes
+    the split senders and runs the post-pass)."""
     heads, f = _check('csr_gat_attend_bwd', lay, hw=hw, s_src=s_src,
                       s_dst=s_dst, out=out, m=m, l=l, a_src=a_src,
                       a_dst=a_dst, d_out=d_out)
@@ -406,8 +417,8 @@ def csr_gat_attend_bwd(hw, s_src, s_dst, out, m, l, a_src, a_dst, d_out,
         def empty(*shape):
             return torch.empty(shape, dtype=torch.float32, device=dev)
         slots = lay.n_slots
-        alpha_e, de_e = empty(e, heads), empty(e, heads)
-        alpha_self, de_self = empty(n, heads), empty(n, heads)
+        delta, de_self = empty(n, heads), empty(n, heads)
+        de_e = empty(e, heads)
         part, part_ds = empty(slots, heads * f), empty(slots, heads)
         runs = empty(lay.n_split * RUNS, heads * f)
         runs_ds = empty(lay.n_split * RUNS, heads)
@@ -416,16 +427,16 @@ def csr_gat_attend_bwd(hw, s_src, s_dst, out, m, l, a_src, a_dst, d_out,
         rc = lib.pna_gat_attend_bwd(
             hw.data_ptr(), s_src.data_ptr(), s_dst.data_ptr(),
             out.data_ptr(), m.data_ptr(), l.data_ptr(), a_src.data_ptr(),
-            a_dst.data_ptr(), d_out.data_ptr(), lay.senders.data_ptr(),
-            lay.ptr.data_ptr(), lay.sperm.data_ptr(), lay.srows.data_ptr(),
+            a_dst.data_ptr(), d_out.data_ptr(), lay.ptr.data_ptr(),
+            lay.sperm.data_ptr(), lay.srows.data_ptr(),
             lay.seg_lo.data_ptr(), lay.seg_hi.data_ptr(),
             lay.seg_node.data_ptr(), lay.seg_slot.data_ptr(),
             lay.split_node.data_ptr(), lay.split_slot.data_ptr(),
-            lay.n_seg, lay.n_split, alpha_e.data_ptr(), de_e.data_ptr(),
-            alpha_self.data_ptr(), de_self.data_ptr(), part.data_ptr(),
-            part_ds.data_ptr(), runs.data_ptr(), runs_ds.data_ptr(),
-            d_hw.data_ptr(), d_s_src.data_ptr(), d_s_dst.data_ptr(), n, nt,
-            e, heads, f, torch.cuda.current_stream(dev).cuda_stream)
+            lay.n_seg, lay.n_split, delta.data_ptr(), de_e.data_ptr(),
+            de_self.data_ptr(), part.data_ptr(), part_ds.data_ptr(),
+            runs.data_ptr(), runs_ds.data_ptr(), d_hw.data_ptr(),
+            d_s_src.data_ptr(), d_s_dst.data_ptr(), n, nt, e, heads, f,
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, rc, 'csr_gat_attend_bwd')
     csr_gat_attend_bwd.launches += 1
     return d_hw, d_s_src, d_s_dst

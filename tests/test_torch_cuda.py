@@ -1565,6 +1565,41 @@ def test_cuda_gat_attend_split_hubs_match_plain(heads, f, seg):
     _hold_gat(*big)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,f", [(4, 256), (6, 121)])
+def test_cuda_gat_attend_bwd_kernels_carry_the_roofline_names(heads, f):
+    """One backward launch on a power-law layout with split sender hubs,
+    under the profiler: every device kernel holds one of the four names
+    ``portbench/metrics/gat_attend_bwd_roofline.py`` reads, and one kernel
+    (the pre-pass) holds the name whose launches it counts."""
+    from torch.profiler import ProfilerActivity, profile
+    from pna_tpu_torch.ops import csr_gat as cg
+    from pna_tpu_torch.ops.timing import gat_case
+    _need_card()
+    lay, hw, a_src, a_dst, s_src, s_dst = gat_case(20_000, 200_000, heads,
+                                                   f, 'cuda', seed=3)
+    assert lay.n_split > 0
+    fwd = cg.csr_gat_attend(hw, s_src, s_dst, lay)
+    d_out = torch.randn_like(fwd[0])
+    torch.cuda.synchronize()
+    # the first session of a process can miss its first kernels: a
+    # throwaway one first
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cg.csr_gat_attend_bwd(hw, s_src, s_dst, *fwd, a_src, a_dst,
+                                  d_out, lay)
+            torch.cuda.synchronize()
+    names = [ev.name() for ev in prof.profiler.kineto_results.events()
+             if 'CUDA' in str(ev.device_type())
+             and not ev.name().startswith(('Memcpy', 'Memset'))]
+    counted = ('gat_attend_bwd_recv_kernel', 'gat_attend_bwd_send_kernel',
+               'gat_attend_merge_runs_kernel',
+               'gat_attend_merge_final_kernel')
+    assert names and all(any(c in n for c in counted) for n in names), names
+    assert sum(counted[0] in n for n in names) == 1, names
+    assert len(names) == 4, names
+
+
 def _gat_step(device, seed=0):
     from pna_tpu_torch.parallel.distributed_net import DistributedGATNet
     from pna_tpu_torch.parallel.partition import (partition_edges,

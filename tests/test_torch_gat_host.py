@@ -47,7 +47,7 @@ def lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pna_gat_attend_fwd.argtypes = [p] * 5 + [i] * 5 + [p] * 4
-    lib.pna_gat_attend_bwd.argtypes = ([p] * 19 + [i] * 2 + [p] * 11
+    lib.pna_gat_attend_bwd.argtypes = ([p] * 18 + [i] * 2 + [p] * 10
                                        + [i] * 5 + [p])
     return lib
 
@@ -73,8 +73,8 @@ def _host_bwd(lib, hw, s_src, s_dst, out, m, l, a_src, a_dst, d_out, lay):
     n, heads = s_dst.shape
     nt, e = lay.n_table, lay.n_edges
     f = hw.shape[1] // heads
-    scratch = [_nan(e, heads), _nan(e, heads), _nan(n, heads),
-               _nan(n, heads), _nan(lay.n_slots, heads * f),
+    scratch = [_nan(n, heads), _nan(e, heads), _nan(n, heads),
+               _nan(lay.n_slots, heads * f),
                _nan(lay.n_slots, heads),
                _nan(lay.n_split * cg.RUNS, heads * f),
                _nan(lay.n_split * cg.RUNS, heads)]
@@ -82,8 +82,7 @@ def _host_bwd(lib, hw, s_src, s_dst, out, m, l, a_src, a_dst, d_out, lay):
     rc = lib.pna_gat_attend_bwd(
         hw.data_ptr(), s_src.data_ptr(), s_dst.data_ptr(), out.data_ptr(),
         m.data_ptr(), l.data_ptr(), a_src.data_ptr(), a_dst.data_ptr(),
-        d_out.data_ptr(), lay.senders.data_ptr(), lay.ptr.data_ptr(),
-        lay.sperm.data_ptr(), lay.srows.data_ptr(), lay.seg_lo.data_ptr(),
+        d_out.data_ptr(), lay.ptr.data_ptr(), lay.sperm.data_ptr(), lay.srows.data_ptr(), lay.seg_lo.data_ptr(),
         lay.seg_hi.data_ptr(), lay.seg_node.data_ptr(),
         lay.seg_slot.data_ptr(), lay.split_node.data_ptr(),
         lay.split_slot.data_ptr(), lay.n_seg, lay.n_split,
@@ -100,16 +99,27 @@ def _close(got, want):
 
 
 @pytest.mark.parametrize("heads,f,seg", [(4, 8, 128), (4, 8, 3), (6, 5, 3),
-                                         (2, 40, 8), (3, 121, 16)])
+                                         (2, 40, 8), (3, 121, 16),
+                                         (4, 8, 2), (4, 8, 1024)])
 def test_host_attend_matches_plain(lib, heads, f, seg):
     """Forward and backward at the layout of ``attention_case`` (a hub of
     ~40% of the edges, a node with no in-edges, 4 ghost rows), with the
     senders cut in segments of ``seg``: at 3 the hub's slots outnumber
-    the merge's runs, so runs hold several slots."""
+    the merge's runs, so runs hold several slots; at 2 split senders are
+    receivers with in-edges (their d_s_dst and a_dst term formed by the
+    merge) and ghost rows; at 1024 no sender is split, and the merge's last
+    kernel runs the post-pass alone."""
     c = attention_case(heads, f, seg=seg)
     lay = c['lay']
     if seg == 3:
         assert int(lay.split_slot.diff().max()) > cg.RUNS
+    split = lay.split_node.long()
+    if seg == 2:
+        local = split[split < c['n']]
+        assert int((lay.ptr[local + 1] - lay.ptr[local] > 0).sum()) > 1
+        assert int(split.max()) >= c['n']
+    if seg == 1024:
+        assert lay.n_split == 0
     out, m, l = _host_fwd(lib, c['hw'], c['s_src'], c['s_dst'], lay)
     want = cg.csr_gat_attend_plain(c['hw'], c['s_src'], c['s_dst'], lay)
     for got, w in zip((out, m, l), want):
