@@ -104,27 +104,17 @@ Phases (any failure raises, so the script exits non-zero):
     graphs of it against the CPU's float64; a profile of the PNA recipe's
     train steps; K1 to K4 launch 0 times in the phase;
 12. layouts (after the interleaved timing of phase 4): the flagship step on
-    the backends that run on other layouts, each at full width on the
-    phase 4 weights: ``kernel='auto'`` on a degree-bucketed batch (which
-    resolves to the bucketed backend) in float32 and bfloat16,
-    ``kernel='ell'`` on a batch with the ELL table, and
-    ``kernel='generic'`` with ``identity`` added to the aggregators on the
-    CSR batch.  Each takes one step on the card against the CPU (the
-    tolerances of phase 4), its first loss against the ``csr`` step's of
-    the same dtype within LOSS_RTOL (generic: against the same net on the
-    ELL batch), then LAYOUT_STEPS steps with falling loss, its launches (0
-    of K1 to K4 on the bucketed and ELL steps; the generic step's printed),
-    peak memory and a profile, and all are timed interleaved with the
-    ``csr`` float32 step.  Then the ZINC trainer with
-    ``bucket_by_degree=True`` and ``kernel='auto'`` at its JSON config's
-    width for 2 epochs (caps from ``derive_bucket_caps``, one batch shape,
-    the first step card vs CPU, falling loss, seconds per epoch, steps/s,
-    0 launches of K1 to K4); the HIV config's step on an ELL batch card vs
-    CPU and vs its CSR batch (0 launches); and the ``csr`` flagship step
-    with dropout 0.1 and ``remat=True`` against the same step without
-    remat (loss rtol 1e-5, gradients GRAD_TOL, batch-norm statistics rtol
-    1e-6, K1 twice per layer and K2 once, the peak memory of both, and both
-    steps timed interleaved);
+    ``kernel='generic'`` with ``identity`` added to the aggregators, at full
+    width on the CSR batch: one step on the card against the CPU (the
+    tolerances of phase 4), its first loss against the same net's on the
+    batch without ``edge_ptr`` (the segment form for every aggregator)
+    within LOSS_RTOL, then LAYOUT_STEPS steps with falling loss, its
+    launches (the sparse bank's K1 and K2 per layer), peak memory and a
+    profile, timed interleaved with the ``csr`` float32 step; and the
+    ``csr`` flagship step with dropout 0.1 and ``remat=True`` against the
+    same step without remat (loss rtol 1e-5, gradients GRAD_TOL, batch-norm
+    statistics rtol 1e-6, K1 twice per layer and K2 once, the peak memory
+    of both, and both steps timed interleaved);
 13. large graph (the distributed stack on the card, over a 1-rank NCCL
     group in this process): the host C++ library (``pna_tpu_torch/native``)
     must have built; ``halo_exchange`` over the NCCL group equals the local
@@ -142,15 +132,15 @@ Phases (any failure raises, so the script exits non-zero):
     edges sent to node 0 (in-degree 200,007), the sums held against float64
     there, timed beside their byte bounds; ``cli.train_largegraph.main`` at
     its defaults with ``--d_graph 1`` for 30 steps (``--eval_every 10``) on
-    ``csr``, ``csr_fused`` (``--edge_feat_dim 4``), ``bucketed`` and
-    ``generic``: exact launches (4 K1 + 4 K2 per train step and 4 K1 per
+    ``csr``, ``csr_fused`` (``--edge_feat_dim 4``) and ``generic``: exact
+    launches (4 K1 + 4 K2 per train step and 4 K1 per
     evaluation on ``csr``, K3/K4 alike on ``csr_fused``, none on the
     others; the row sum's, ``LG_ROWSUM``), finite val losses, a falling train loss on the CSR backends,
     train steps/s; ``--kernel auto`` prints its choice; 20 steps and a
     resume to 30 against the 30 straight ``csr`` steps (equal); and
-    the trainer's step on ``csr``, ``csr_fused``, ``bucketed`` and
-    ``generic`` at 1,000,000 edges and on ``csr`` and ``bucketed`` at
-    100,000 (median step, peak memory per padded-edge-row byte, a profile):
+    the trainer's step on ``csr``, ``csr_fused`` and ``generic`` at
+    1,000,000 edges and on ``csr`` at 100,000 (median step, peak memory
+    per padded-edge-row byte, a profile):
     the readings of ``ops/layout.py``'s constants (each profile gives K1-K4's
     and the row sum's ms and launches per step, and the ``index_add_`` and
     sort kernels); the ``csr`` step twice from the same weights, bit-equal
@@ -183,19 +173,20 @@ Phases (any failure raises, so the script exits non-zero):
     printed: 42,356 real edges and 19,784 nodes, edges/s = edges x 4 / step
     within 1e-9, finite times, an MFU, 4 K1 and 4 K2 launches per step and
     exactly 4 of each per step it ran; (b) one table of runners, every
-    backend in float32 and bfloat16 (``csr``, ``csr_fused``, ``ell``,
-    ``bucketed``, ``auto``), ``generic``, ``csr`` with remat and ``csr``
+    backend in float32 and bfloat16 (``csr``, ``csr_fused``, ``auto``,
+    which resolves to ``csr``), ``generic``, ``csr`` with remat and ``csr``
     with the per-tensor Adam, timed in blocks of BENCH_BLOCK steps in the
     order A..Z Z..A twice: step ms, edges/s, spread, device ms, busy share,
     kernels per step, MFU, the backend each layer resolved to and the
-    launches per step (4 K1 + 4 K2 on ``csr``, 8 K1 with remat, 4 K3 + 4
-    K4 on ``csr_fused``, none elsewhere); (c) the flat Adam: 3 ``csr``
-    float32 steps with ``FlatAdam`` and with the per-tensor Adam from the
-    same weights on the same gradients (parameters within 1e-6), the flat
-    step's first gradients card against CPU at phase 4's limits, one
-    update of each timed alone with CUDA events, and the kernels per
-    training step of each from (b); (d) short runs of ``main`` with
-    ``--no_edge_feat`` and with 80-wide layers in bfloat16, held like (a).
+    launches per step (4 K1 + 4 K2 on ``csr`` and through ``generic``'s
+    sparse bank, 8 K1 with remat, 4 K3 + 4 K4 on ``csr_fused``); (c) the
+    flat Adam: 3 ``csr`` float32 steps with ``FlatAdam`` and with the
+    per-tensor Adam from the same weights on the same gradients
+    (parameters within 1e-6), the flat step's first gradients card against
+    CPU at phase 4's limits, one update of each timed alone with CUDA
+    events, and the kernels per training step of each from (b); (d) short
+    runs of ``main`` with ``--no_edge_feat`` and with 80-wide layers in
+    bfloat16, held like (a).
 
 The GAT phase (``gat_phase``): the attention kernels ``csr_gat_attend`` and
 ``csr_gat_attend_bwd`` at the GAT cell's two layer shapes bit-equal to
@@ -212,6 +203,7 @@ and prints no result.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -240,10 +232,10 @@ from pna_tpu_torch.cli import pna as mt_pna
 from pna_tpu_torch.data.multitask import load_multitask_dataset
 from pna_tpu_torch.data.hiv import HIVDataset
 from pna_tpu_torch.data.molecules import (ZincDataset, batch_iterator,
-                                          collate_records, derive_bucket_caps)
+                                          collate_records)
 from pna_tpu_torch.data.superpixels import SuperpixelsDataset
 from pna_tpu_torch.graph import batch_graphs
-from pna_tpu_torch.nn.nets import PNANetHIV, PNANetMolecules
+from pna_tpu_torch.nn.nets import PNANetMolecules
 from pna_tpu_torch.nn.pyg import (PNAConvPyG, PNAConvSimplePyG,
                                   PNANetPyGExample)
 from pna_tpu_torch.nn.sparse import (GATLayerSparse, GCNLayerSparse,
@@ -317,17 +309,15 @@ MSG_LEAD, MSG_PAD = 3, 9
 # worked out from the code: one for the backward of every gather_rows of a
 # tensor that needs a gradient, one for every float segment_sum on the card
 # (forward; its backward is a row gather), one for csr_fused's d_u.  'csr'
-# and 'ell' gather the senders and the receivers (2); 'bucketed' gathers
-# the senders (its receiver side is a broadcast: 1); 'csr_fused' sums d_u
-# (1); 'generic' gathers both and, on the ELL batch, the messages into the
-# table, or on a CSR batch with 'identity' counts the in-degrees for the
-# segment form (3).  The readout adds ROWSUM_READOUT in every forward, and
+# and 'generic' gather the senders and the receivers (2); 'csr_fused' sums
+# d_u (1); with 'identity' (generic) the segment form counts the in-degrees
+# too (IDENTITY_ROWSUM).  The readout adds ROWSUM_READOUT in every forward, and
 # each embedding lookup (a row gather of its weight) one in a train step:
 # the flagship looks up atoms and bonds (2), the ZINC CLI atoms (1), the
 # OGB AtomEncoder of the HIV and PyG nets its 9 columns, the superpixel and
 # large-graph nets none (dense embeddings)
-ROWSUM_PER_LAYER = {'csr': 2, 'ell': 2, 'bucketed': 1, 'csr_fused': 1,
-                    'generic': 3}
+ROWSUM_PER_LAYER = {'csr': 2, 'csr_fused': 1, 'generic': 2}
+IDENTITY_ROWSUM = 1
 # 'sum': one segment_sum; 'mean': the sum and the count
 ROWSUM_READOUT = {'sum': 1, 'mean': 2}
 OGB_ATOM_COLUMNS = 9
@@ -2132,17 +2122,10 @@ def multitask_phase(dev, card):
 
 
 # ---------------------------------------------------------------------------
-# layouts phase: the bucketed, ELL and generic backends, and remat
+# layouts phase: the generic backend, and remat
 # ---------------------------------------------------------------------------
 
 LAYOUT_STEPS = 6             # steps of each layout before its profile
-
-
-def with_kernel(model, kernel):
-    """The net with every fused layer on ``kernel``."""
-    for layer in model.layers:
-        layer.kernel = kernel
-    return model
 
 
 def layout_steps(name, model, g_dev, y_dev, want_counts):
@@ -2177,215 +2160,70 @@ def layout_steps(name, model, g_dev, y_dev, want_counts):
             (model, opt, g_dev, y_dev))
 
 
-def flagship_layouts(ds, csr_graph, labels, state, csr, csr_trainer, dev,
-                     card):
-    """The flagship step on the bucketed ('auto' on a bucketed batch, float32
-    and bfloat16), ELL and generic (identity added) backends at full width:
-    each card step against the CPU step on the same weights (compare_step),
-    its first loss against the 'csr' step's on the same graphs, its steps,
-    launches, peak memory and profile, then all interleaved with the 'csr'
-    float32 step."""
-    bucketed, _ = collate_records(ds.train, with_snorm=True,
-                                  bucket_by_degree=True)
-    ell, _ = collate_records(ds.train, with_snorm=True, with_ell=True)
+def flagship_layouts(ds, csr_graph, labels, csr, csr_trainer, dev, card):
+    """The flagship step on the generic backend (identity added) at full
+    width: the card step against the CPU step on the same weights
+    (compare_step), its first loss against the same net's on the batch
+    without ``edge_ptr`` (the segment form for every aggregator), its
+    steps, launches, peak memory and profile, then interleaved with the
+    'csr' float32 step."""
+    name = 'generic+identity f32'
     ident = FLAGSHIP['aggregators'] + ('identity',)
-    ident_state = PNANetMolecules(
-        **dict(FLAGSHIP, aggregators=ident), num_atom_type=ds.num_atom_type,
-        num_bond_type=ds.num_bond_type, avg_d=ds.avg_d(), kernel='generic',
-        device='cpu', seed=0).state_dict()
-    log(f"layouts: bucketed batch {bucketed.bucket_spec} "
-        f"({bucketed.n_node_pad} node, {bucketed.n_edge_pad} edge slots); "
-        f"ELL table {tuple(ell.nbr_edge_ids.shape)}; CSR batch "
-        f"{csr_graph.n_node_pad} nodes, {csr_graph.n_edge_pad} edges")
-    cases = [
-        # name, kernel, batch, compute dtype, aggregators, launches per step
-        ('auto/bucketed f32', 'auto', bucketed, torch.float32, None,
-         want_launches(rows=rowsum_per_step('bucketed', N_LAYERS))),
-        ('auto/bucketed bf16', 'auto', bucketed, torch.bfloat16, None,
-         want_launches(rows=rowsum_per_step('bucketed', N_LAYERS))),
-        ('ell f32', 'ell', ell, torch.float32, None,
-         want_launches(rows=rowsum_per_step('ell', N_LAYERS))),
-        # the sparse bank's K1 and K2 per layer on the CSR batch
-        ('generic+identity f32', 'generic', csr_graph, torch.float32, ident,
-         want_launches('csr', N_LAYERS,
-                       rowsum_per_step('generic', N_LAYERS))),
-    ]
+    kw = dict(FLAGSHIP, aggregators=ident, num_atom_type=ds.num_atom_type,
+              num_bond_type=ds.num_bond_type, avg_d=ds.avg_d(),
+              kernel='generic')
+    state = PNANetMolecules(**kw, device='cpu', seed=0).state_dict()
+    # the sparse bank's K1 and K2 per layer on the CSR batch
+    counts = want_launches('csr', N_LAYERS,
+                           rowsum_per_step('generic', N_LAYERS)
+                           + IDENTITY_ROWSUM * N_LAYERS)
+    log(f"layouts[{name}]: CSR batch {csr_graph.n_node_pad} nodes, "
+        f"{csr_graph.n_edge_pad} edges")
+    model = PNANetMolecules(**kw, device=dev)
+    cpu_model = PNANetMolecules(**kw, device='cpu')
+    for m in (model, cpu_model):
+        m.load_state_dict(state)
+    g_dev, y_dev = csr_graph.to(dev), labels.to(dev)
+    fk.reset_launch_counts()
+    first = compare_step(model, cpu_model, g_dev, y_dev, csr_graph, labels,
+                         False)
+    torch.cuda.synchronize()
+    step_counts = fk.launch_counts()
+    if step_counts != counts:
+        raise AssertionError(f"layouts[{name}]: launches {step_counts}")
+    other = PNANetMolecules(**kw, device=dev)
+    other.load_state_dict(state)
+    ref = float(loss_and_grads(other, dataclasses.replace(g_dev,
+                                                          edge_ptr=None),
+                               y_dev))
+    what = "generic on the batch without edge_ptr"
+    del other, cpu_model
+    if not abs(first - ref) <= LOSS_RTOL * abs(ref):
+        raise AssertionError(f"layouts[{name}]: first loss {first} vs "
+                             f"{what} {ref}")
+    log(f"  first loss {first:.6f} vs {what} {ref:.6f} (rtol "
+        f"{LOSS_RTOL}); launches in the compared step {step_counts}")
     res, trainers = {}, {'csr f32': csr_trainer}
-    for name, kernel, graph, cdt, aggs, counts in cases:
-        bf16 = cdt == torch.bfloat16
-        log(f"layouts[{name}]:")
-        kw = dict(FLAGSHIP, num_atom_type=ds.num_atom_type,
-                  num_bond_type=ds.num_bond_type, avg_d=ds.avg_d(),
-                  kernel=kernel, compute_dtype=cdt)
-        if aggs is not None:
-            kw['aggregators'] = aggs
-        model = PNANetMolecules(**kw, device=dev)
-        cpu_model = PNANetMolecules(**kw, device='cpu')
-        for m in (model, cpu_model):
-            m.load_state_dict(state if aggs is None else ident_state)
-        g_dev, y_dev = graph.to(dev), labels.to(dev)
-        fk.reset_launch_counts()
-        first = compare_step(model, cpu_model, g_dev, y_dev, graph, labels,
-                             bf16)
-        torch.cuda.synchronize()
-        step_counts = fk.launch_counts()
-        if step_counts != counts:
-            raise AssertionError(f"layouts[{name}]: launches {step_counts}")
-        # the same function on another layout: the 'csr' step's loss, or
-        # for identity (no CSR backend) the generic step on the ELL batch
-        if aggs is None:
-            ref = csr[torch.bfloat16 if bf16 else torch.float32]
-            what = f"csr {'bf16' if bf16 else 'f32'}"
-        else:
-            other = PNANetMolecules(**kw, device=dev)
-            other.load_state_dict(ident_state)
-            ref, what = float(loss_and_grads(other, ell.to(dev), y_dev)), \
-                "generic on the ELL batch"
-            del other
-        if not abs(first - ref) <= LOSS_RTOL * abs(ref):
-            raise AssertionError(f"layouts[{name}]: first loss {first} vs "
-                                 f"{what} {ref}")
-        log(f"  first loss {first:.6f} vs {what} {ref:.6f} (rtol "
-            f"{LOSS_RTOL}); launches in the compared step {step_counts}")
-        res[name], trainers[name] = layout_steps(name, model, g_dev, y_dev,
-                                                 counts)
-        res[name].update(first_loss=first, ref_loss=ref,
-                         step_launches=step_counts)
-        del cpu_model
+    res[name], trainers[name] = layout_steps(name, model, g_dev, y_dev,
+                                             counts)
+    res[name].update(first_loss=first, ref_loss=ref,
+                     step_launches=step_counts)
     inter = interleaved_steps(trainers)
     res['csr f32'] = dict(peak_mib=csr['stats']['peak_mib'],
                           profile=csr['stats']['profile'])
     log(f"layouts summary on {card} (interleaved median step, blocks of 3 "
         "steps in turns and back, twice; device kernel time and kernels per "
         "step from the profile; busy = device / interleaved step):")
-    for name, ms in inter.items():
-        r, prof = res[name], res[name]['profile']
+    for key, ms in inter.items():
+        r, prof = res[key], res[key]['profile']
         r['step_ms'] = ms
         if prof is not None:
             r['busy'] = prof['device_ms'] / ms
-        log(f"  {name:22s} {ms:8.3f} ms  " + (
+        log(f"  {key:22s} {ms:8.3f} ms  " + (
             f"device {prof['device_ms']:.3f} ms  {prof['kernels']} kernels  "
             f"busy {r['busy']:.3f}  " if prof else "profile not measured  ")
             + f"peak {r['peak_mib']:.1f} MiB")
     return res
-
-
-def zinc_bucketed_trainer(dev, card):
-    """The ZINC trainer with bucket_by_degree=True and kernel='auto' at its
-    JSON config's width, 2 epochs on the CLI's synthetic data: caps from
-    derive_bucket_caps over all splits and one batch shape; the first
-    trainer step card against CPU; falling loss; no K1 to K4 launch, the
-    row sum's per train step and evaluation batch."""
-    cfg_json = cli_config(main_molecules, ZINC_CONFIG)
-    net, p = cfg_json['net_params'], cfg_json['params']
-    ds = ZincDataset.synthetic(**main_molecules.SYNTHETIC, seed=p['seed'])
-    cpu_model, fwd = main_molecules.make_model(net, ds, 'cpu', seed=p['seed'])
-    model, _ = main_molecules.make_model(net, ds, dev, seed=p['seed'])
-    model.load_state_dict(cpu_model.state_dict())
-    for m in (model, cpu_model):
-        with_kernel(m, 'auto')
-
-    def config():
-        cfg = main_molecules.make_config(p)
-        cfg.bucket_by_degree, cfg.epochs = True, 2
-        return cfg
-
-    caps = derive_bucket_caps(ds.train + ds.val + ds.test, p['batch_size'])
-    losses = {}
-    for where, m in (('card', model), ('cpu', cpu_model)):
-        trainer = RealworldTrainer(m, PNANetMolecules.loss, config(),
-                                   forward_args=fwd,
-                                   device=dev if where == 'card' else 'cpu')
-        trainer.bucket_caps = caps
-        losses[where], _ = trainer.run_epoch(ds.train[:p['batch_size']],
-                                             True, p['seed'])
-    worst = hold_step("zinc bucketed trainer step", model, cpu_model, losses)
-    log(f"layouts[zinc trainer] first bucketed step card vs CPU: loss "
-        f"{losses['card']:.6f} vs {losses['cpu']:.6f}, worst gradient error "
-        f"{worst:.3g} (tolerance {GRAD_TOL})")
-    model, _ = main_molecules.make_model(net, ds, dev, seed=p['seed'])
-    trainer = RealworldTrainer(with_kernel(model, 'auto'),
-                               PNANetMolecules.loss, config(),
-                               forward_args=fwd, device=dev)
-    torch.cuda.synchronize()
-    fk.reset_launch_counts()
-    t0 = time.perf_counter()
-    _, best, hist = trainer.fit(ds, log_fn=lambda s: None)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = fk.launch_counts()
-    if trainer.bucket_caps != caps:
-        raise AssertionError("trainer caps differ from derive_bucket_caps")
-    shapes = {(g.n_node_pad, g.n_edge_pad, g.bucket_spec)
-              for split in (ds.train, ds.val, ds.test)
-              for g, _ in batch_iterator(split, p['batch_size'], 0,
-                                         shuffle=False, bucket_caps=caps)}
-    train_loss = [h['train_loss'] for h in hist]
-    steps = sum(h['train_steps'] for h in hist)
-    evals = config().epochs * sum(-(-len(split) // p['batch_size'])
-                                  for split in (ds.val, ds.test))
-    readout = ROWSUM_READOUT[net['readout']]
-    want = want_launches(rows=rowsum_per_step(
-        'bucketed', net['L'], net['readout'], 1 + net['edge_feat']) * steps
-        + readout * evals)
-    if len(shapes) != 1 or counts != want or not (
-            all(map(math.isfinite, train_loss))
-            and train_loss[-1] < train_loss[0]):
-        raise AssertionError(f"zinc bucketed trainer: {len(shapes)} shapes, "
-                             f"launches {counts}, losses {train_loss}")
-    train_s = sum(h['train_s'] for h in hist)
-    row = dict(caps=caps, shapes=len(shapes), launches=counts, wall_s=wall,
-               epoch_s=[h['epoch_s'] for h in hist], train_steps=steps,
-               steps_per_s=steps / train_s, train_loss=train_loss,
-               best_val=best['val_metric'], first_step_worst_grad=worst)
-    log(f"layouts[zinc trainer] bucket_by_degree=True, kernel='auto', 2 "
-        f"epochs in {wall:.2f} s on {card}: caps {caps}, {len(shapes)} batch "
-        f"shape; seconds per epoch {[round(x, 3) for x in row['epoch_s']]}; "
-        f"{steps} train steps at {row['steps_per_s']:.2f} steps/s; train "
-        f"loss {[round(x, 5) for x in train_loss]}; launches {counts}")
-    return row
-
-
-def hiv_ell_step(config, ds, dev):
-    """The HIV config's first step (dropout 0) on an ELL batch, card against
-    CPU, and against the same weights on the CSR batch on the card; no K1
-    to K4 launch on the ELL step; the row sum twice a layer (the sender
-    gather and the ELL table's gather), for the mean readout and for the
-    AtomEncoder's 9 lookups."""
-    net, p = config['net_params'], config['params']
-    # dropout masks come from each device's own generator: none here
-    net = dict(net, dropout=0.0, in_feat_dropout=0.0)
-    recs = ds.train[:p['batch_size']]
-    ell, y = collate_records(recs, with_ell=True)
-    csr_b, _ = collate_records(recs)
-    cpu_model, _ = main_HIV.make_model(net, ds, 'cpu', seed=p['seed'])
-    state = {k: v.clone() for k, v in cpu_model.state_dict().items()}
-    losses, models = {}, {}
-    for where, graph in (('cpu', ell), ('card', ell), ('csr', csr_b)):
-        device = 'cpu' if where == 'cpu' else dev
-        m, _ = main_HIV.make_model(net, ds, device, seed=p['seed'])
-        m.load_state_dict(state)
-        m.train()
-        g = graph.to(device)
-        fk.reset_launch_counts()
-        loss = PNANetHIV.loss(m(g, g.node_feats), y.to(device), g.graph_mask)
-        loss.backward()
-        if where == 'card':
-            torch.cuda.synchronize()
-            counts = fk.launch_counts()
-        models[where], losses[where] = m, float(loss.detach())
-    worst = hold_step("hiv ell step", models['card'], models['cpu'], losses)
-    want = want_launches(rows=2 * net['L'] + ROWSUM_READOUT[net['readout']]
-                         + OGB_ATOM_COLUMNS)
-    if counts != want or not abs(losses['card'] - losses['csr']) <= \
-            LOSS_RTOL * abs(losses['csr']):
-        raise AssertionError(f"hiv ell step: launches {counts}, loss "
-                             f"{losses}")
-    log(f"layouts[hiv ell] ELL batch {tuple(ell.nbr_edge_ids.shape)}: loss "
-        f"card {losses['card']:.6f}, CPU {losses['cpu']:.6f}, CSR batch on "
-        f"the card {losses['csr']:.6f}; worst gradient error {worst:.3g}; "
-        f"launches {counts}")
-    return dict(losses, worst_grad=worst, launches=counts)
 
 
 def remat_step(ds, graph, labels, state, dev):
@@ -2442,17 +2280,12 @@ def remat_step(ds, graph, labels, state, dev):
                 plain_step_ms=inter[False])
 
 
-def layouts_phase(ds, graph, labels, state, runs, csr_trainer, hiv, dev,
-                  card):
+def layouts_phase(ds, graph, labels, state, runs, csr_trainer, dev, card):
     """Phase 12 of the module docstring."""
     t0 = time.perf_counter()
-    csr = {cdt: runs['csr', cdt]['first_loss']
-           for cdt in (torch.float32, torch.bfloat16)}
-    csr['stats'] = runs['csr', torch.float32]
-    res = dict(flagship=flagship_layouts(ds, graph, labels, state, csr,
+    csr = dict(stats=runs['csr', torch.float32])
+    res = dict(flagship=flagship_layouts(ds, graph, labels, csr,
                                          csr_trainer, dev, card),
-               zinc_trainer=zinc_bucketed_trainer(dev, card),
-               hiv_ell=hiv_ell_step(*hiv, dev),
                remat=remat_step(ds, graph, labels, state, dev))
     res['seconds'] = time.perf_counter() - t0
     log(f"layouts: phase took {res['seconds']:.1f} s")
@@ -2474,9 +2307,8 @@ LG_RESUME_AT = 20
 # the trainer's step for the layout constants (ops/layout.py): warm-up and
 # timed steps at each edge count
 LG_WARM, LG_TIMED = 3, 10
-LG_BENCH = (('csr', 1_000_000), ('bucketed', 1_000_000),
-            ('csr_fused', 1_000_000), ('generic', 1_000_000),
-            ('csr', 100_000), ('bucketed', 100_000))
+LG_BENCH = (('csr', 1_000_000), ('csr_fused', 1_000_000),
+            ('generic', 1_000_000), ('csr', 100_000))
 LG_FE = 4                    # --edge_feat_dim of the csr_fused runs
 # the width of the edge features K3/K4 read on that path: the net embeds
 # them to the hidden width first (DistributedPNANet's embedding_e)
@@ -2671,7 +2503,6 @@ def lg_kernel_cases(dev):
 # std's two (4, also in an evaluation) and the two gathers' backward
 HALO_ROWSUM = 1
 LG_ROWSUM = {'csr': (2 + HALO_ROWSUM, 0), 'csr_fused': (1 + HALO_ROWSUM, 0),
-             'bucketed': (1 + HALO_ROWSUM, 0),
              'generic': (6 + HALO_ROWSUM, 4)}
 
 
@@ -2826,7 +2657,7 @@ def largegraph_phase(dev, card):
     runs = {}
     for kernel, extra in (('csr', []), ('csr_fused',
                                         ['--edge_feat_dim', str(LG_FE)]),
-                          ('bucketed', []), ('generic', [])):
+                          ('generic', [])):
         hist, counts, lines, wall = lg_cli(kernel, LG_STEPS, evals, extra)
         want = lg_expected(kernel, LG_STEPS, evals)
         if counts != want:
@@ -3184,16 +3015,17 @@ def sparse_powerlaw_phase(dev, card):
 BENCH_EDGES, BENCH_NODES = 42_356, 19_784
 # the interleaved table: (label, kernel, dtype, flat Adam, remat)
 BENCH_TABLE = [(f"{k} {dt}", k, dt, True, False)
-               for k in ('csr', 'csr_fused', 'ell', 'bucketed', 'auto')
+               for k in ('csr', 'csr_fused', 'auto')
                for dt in ('f32', 'bf16')] + [
     ("generic f32", 'generic', 'f32', True, False),
     ("csr f32 remat", 'csr', 'f32', True, True),
     ("csr f32 per-tensor Adam", 'csr', 'f32', False, False)]
 BENCH_WARM, BENCH_BLOCK, BENCH_ROUNDS = 3, 5, 2
-# the backend each kernel flag resolves to on its batch
-BENCH_RESOLVES = {'csr': 'csr', 'csr_fused': 'csr_fused', 'ell': 'ell',
-                  'bucketed': 'bucketed', 'auto': 'bucketed',
+# the backend each kernel flag resolves to on the twin's batch, and the
+# kernels of its bank: generic's sparse bank takes K1 and K2 on the card
+BENCH_RESOLVES = {'csr': 'csr', 'csr_fused': 'csr_fused', 'auto': 'csr',
                   'generic': 'generic'}
+BENCH_BANK = {'csr': 'csr', 'csr_fused': 'csr_fused', 'generic': 'csr'}
 BENCH_FINITE = ('step_ms', 'edges_per_sec', 'spread_ms',
                 'matmul_tflops_per_step', 'device_ms_per_step', 'busy',
                 'kernels_per_step')
@@ -3202,9 +3034,10 @@ BENCH_FINITE = ('step_ms', 'edges_per_sec', 'spread_ms',
 def bench_launches(kernel, remat, edge_feat=True):
     """K1-K4 and row-sum launches per step of the twin's step on
     ``kernel`` (``edge_feat``: the bond lookup too)."""
-    want = want_launches(kernel, N_LAYERS, rowsum_per_step(
-        BENCH_RESOLVES[kernel], N_LAYERS, lookups=1 + edge_feat),
-        N_LAYERS if BENCH_RESOLVES[kernel] == 'csr' else 0)
+    backend = BENCH_RESOLVES[kernel]
+    want = want_launches(BENCH_BANK[backend], N_LAYERS, rowsum_per_step(
+        backend, N_LAYERS, lookups=1 + edge_feat),
+        N_LAYERS if backend == 'csr' else 0)
     if remat:
         want['csr_moment_sketch'] *= 2
         want[MSG] *= 2
@@ -3459,8 +3292,7 @@ def main():
     inter = interleaved_steps(trainers)
     determinism = determinism_phase(ds, graph, labels, state, dev)
     layouts = layouts_phase(ds, graph, labels, state, runs,
-                            trainers['csr', torch.float32], (hcfg, hds), dev,
-                            card)
+                            trainers['csr', torch.float32], dev, card)
     del trainers
     log("train interleaved (blocks of 3 steps, A B C D D C B A twice): "
         "median step " + ", ".join(

@@ -18,11 +18,12 @@ the headline is bf16's when it was timed.
 Departures from ``bench.py``:
 
 * ``--kernel`` defaults to ``csr`` (K1/K2), the port's default backend
-  (``nn/nets.py``), not ``auto``: on the bench's degree-bucketed batch
-  ``auto`` resolves to ``bucketed``, whose step took 1.8x the ``csr`` step
-  on the H100.  ``--kernel auto`` makes ``bench.py``'s choice.  The JAX names
-  ``pallas`` and ``pallas_fused`` raise ``ValueError`` naming ``csr`` and
-  ``csr_fused``.
+  (``nn/nets.py``), not ``auto``; every backend takes the receiver-sorted
+  batch, where ``auto`` resolves to ``csr`` on the card.  ``bench.py``'s
+  ``auto`` on its degree-bucketed batch has no counterpart: the port has no
+  bucketed or ELL layout, and ``--kernel bucketed`` or ``ell`` raises
+  ``ValueError``, as do the JAX names ``pallas`` and ``pallas_fused``,
+  naming ``csr`` and ``csr_fused``.
 * ``vs_baseline`` is null: ``benchmarks/baseline_value.json`` holds a TPU
   reading, and this harness neither reads nor writes any file.
 * XLA's cost analysis has no counterpart.  ``matmul_tflops_per_step`` is
@@ -78,8 +79,8 @@ PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": {"float32": 67e12, "tf32": 495e12,
 
 def build_bench(batch_graphs_n: int = 1024, seed: int = 0,
                 edge_feat: bool = True, compute_dtype=None,
-                kernel: str = 'csr', max_buckets: int = 4,
-                flat_opt: bool = False, remat: bool = False,
+                kernel: str = 'csr', flat_opt: bool = False,
+                remat: bool = False,
                 hidden_dim: Optional[int] = None,
                 out_dim: Optional[int] = None,
                 edge_dim: Optional[int] = None, towers: int = 5,
@@ -95,18 +96,9 @@ def build_bench(batch_graphs_n: int = 1024, seed: int = 0,
     device = resolve_device(device)
     ds = ZincDataset.synthetic(n_train=batch_graphs_n, n_val=1, n_test=1,
                                seed=seed)
-    # the layout per backend: degree-bucketed for auto/bucketed, receiver-
-    # sorted (edge_ptr) otherwise; with the ELL table, which the JAX
-    # batch_graphs builds by default
-    bucket = kernel in ('auto', 'bucketed')
-    graph, labels = collate_records(ds.train, with_snorm=True,
-                                    bucket_by_degree=bucket,
-                                    bucket_max_buckets=max_buckets,
-                                    with_ell=True)
+    graph, labels = collate_records(ds.train, with_snorm=True)
     n_edges = int(graph.edge_mask.sum())
     n_nodes = int(graph.node_mask.sum())
-    max_deg = (int(graph.in_deg.max()) if graph.in_deg is not None
-               else 32)
     if edge_feat:
         # the reference's headline ZINC recipe (README.md:62)
         net_kw = dict(hidden_dim=70, out_dim=60, edge_dim=50, edge_feat=True,
@@ -125,7 +117,7 @@ def build_bench(batch_graphs_n: int = 1024, seed: int = 0,
         scalers=('identity', 'amplification', 'attenuation'),
         avg_d=ds.avg_d(), readout_type='sum', towers=towers,
         graph_norm=True, batch_norm=True, residual=True,
-        compute_dtype=compute_dtype, kernel=kernel, max_degree=max_deg,
+        compute_dtype=compute_dtype, kernel=kernel, max_degree=32,
         remat=remat, device=device, seed=seed, **net_kw)
     opt = make_optimizer(model, lr=1e-3, flat=flat_opt)
     # the batch goes to the device once
@@ -184,7 +176,7 @@ class BenchRunner:
     under ``count_matmul_flops`` runs at construction."""
 
     def __init__(self, batch: int, edge_feat: bool, compute_dtype,
-                 kernel: str, max_buckets: int = 4, flat_opt: bool = False,
+                 kernel: str, flat_opt: bool = False,
                  remat: bool = False, hidden_dim: Optional[int] = None,
                  out_dim: Optional[int] = None,
                  edge_dim: Optional[int] = None, towers: int = 5,
@@ -193,7 +185,7 @@ class BenchRunner:
          self.n_edges, self.n_nodes) = build_bench(
             batch_graphs_n=batch, edge_feat=edge_feat,
             compute_dtype=compute_dtype, kernel=kernel,
-            max_buckets=max_buckets, flat_opt=flat_opt, remat=remat,
+            flat_opt=flat_opt, remat=remat,
             hidden_dim=hidden_dim, out_dim=out_dim, edge_dim=edge_dim,
             towers=towers, device=device)
         self.device = self.graph.senders.device
@@ -226,7 +218,7 @@ class BenchRunner:
         """The backend each fused layer resolves to on this batch."""
         from pna_tpu_torch.nn.fused import resolve_backend
         return [resolve_backend(layer.kernel, self.graph, layer.aggregators,
-                                layer.scalers, self.device)
+                                self.device)
                 for layer in self.model.layers]
 
     def profile(self, steps: int = PROFILE_STEPS) -> dict:
@@ -273,14 +265,13 @@ class BenchRunner:
 
 
 def run_config(batch, edge_feat, compute_dtype, kernel, n_iters,
-               max_buckets=4, flat_opt=False, remat=False,
+               flat_opt=False, remat=False,
                device: DeviceLike = None) -> dict:
     """One configuration alone (``bench.py::run_config``): 5 warm-up steps,
     3 blocks of ``n_iters // 3`` steps, the report with ``n_edges`` and
     ``n_nodes``."""
     r = BenchRunner(batch, edge_feat, compute_dtype, kernel,
-                    max_buckets=max_buckets, flat_opt=flat_opt, remat=remat,
-                    device=device)
+                    flat_opt=flat_opt, remat=remat, device=device)
     r.warmup(5)
     for _ in range(3):
         r.time_block(max(1, n_iters // 3))
@@ -315,7 +306,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     "JSON line.")
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--kernel", default="csr",
-                    help="auto, bucketed, ell, csr, csr_fused or generic")
+                    help="auto, csr, csr_fused or generic")
     ap.add_argument("--dtype", default="both", choices=["both", "f32", "bf16"])
     ap.add_argument("--no_edge_feat", action="store_true")
     ap.add_argument("--hidden_dim", type=int, default=None)
@@ -330,7 +321,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "minimum block mean")
     ap.add_argument("--warmup", type=int, default=8,
                     help="warm-up steps per dtype before timing")
-    ap.add_argument("--max_buckets", type=int, default=4)
     ap.add_argument("--no_flat_opt", dest="flat_opt", action="store_false",
                     help="per-tensor Adam in place of the flat one")
     ap.add_argument("--remat", action="store_true")
@@ -373,8 +363,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     for name in names:
         runners[name] = BenchRunner(
             args.batch, edge_feat, DTYPES[name], args.kernel,
-            max_buckets=args.max_buckets, flat_opt=args.flat_opt,
-            remat=args.remat, hidden_dim=args.hidden_dim,
+            flat_opt=args.flat_opt, remat=args.remat,
+            hidden_dim=args.hidden_dim,
             out_dim=args.out_dim, edge_dim=args.edge_dim,
             towers=args.towers, device=device)
         runners[name].warmup(args.warmup)

@@ -2,8 +2,8 @@
 'graph') mesh.
 
 Counterpart of ``pna_tpu/cli/train_largegraph.py``, with its flags; the
-kernel choices are the port's (``--kernel {auto,bucketed,generic,csr,
-csr_fused}``).  One process per rank:
+kernel choices are the port's (``--kernel {auto,generic,csr,csr_fused}``).
+One process per rank:
 
     # one card, the whole graph on it (100k nodes, 1M power-law edges)
     python -m pna_tpu_torch.cli.train_largegraph --d_graph 1 --kernel csr

@@ -1,16 +1,17 @@
 """The host-side C++ graph operations, loaded with ctypes.
 
 Counterpart of ``pna_tpu/native/__init__.py``; ``graph_ops.cpp`` is a copy of
-that package's source.  These are host preprocessing, not device kernels;
-the port binds the three that the edge partition runs (its per-part
-counts, its index tables and its locality order).  The library's degree
-count, ELL table and receiver sort stay unbound: the batcher builds those
-in numpy (``graph.py``).  The library is compiled at first use with
-``g++`` into ``pna_tpu_torch/_build/`` under a name keyed on a hash of the
-source and the flags, as ``ops/build.py`` does for the CUDA kernels, so a
-stale or foreign build is never loaded.  Every entry point has a numpy twin
-that gives the same arrays, which is used when no compiler is present:
-a missing toolchain costs preprocessing speed, not correctness.
+that package's source without its ELL table, a layout the port does not
+have.  These are host preprocessing, not device kernels; the port binds the
+three that the edge partition runs (its per-part counts, its index tables
+and its locality order).  The library's degree count and receiver sort stay
+unbound: the batcher builds those in numpy (``graph.py``).  The library is
+compiled at first use with ``g++`` into ``pna_tpu_torch/_build/`` under a
+name keyed on a hash of the source and the flags, as ``ops/build.py`` does
+for the CUDA kernels, so a stale or foreign build is never loaded.  Every
+entry point has a numpy twin that gives the same arrays, which is used when
+no compiler is present: a missing toolchain costs preprocessing speed, not
+correctness.
 ``chip_smoke.py`` checks that the library loads on the card's machine.
 """
 

@@ -1,12 +1,11 @@
 // Native graph-structure kernels for the host-side data path.
 //
 // The reference delegates its graph bookkeeping to DGL's C++ core
-// (dgl.batch, degree bucketing); here the device feeds on
-// static-shape layouts built host-side, and these loops are the only O(E)
-// host work: ELL (padded neighbor-list) construction, degree counting and
-// edge-partition index building.  Python fallbacks exist for all entry
-// points; this library keeps the 100M-edge benchmark's preprocessing off the
-// Python interpreter.
+// (dgl.batch); here the device feeds on static-shape layouts built
+// host-side, and these loops are the only O(E) host work: degree counting,
+// the receiver sort and edge-partition index building.  Python fallbacks
+// exist for all entry points; this library keeps the 100M-edge benchmark's
+// preprocessing off the Python interpreter.
 //
 // Build: pna_tpu_torch/native/__init__.py compiles this with g++ -O3 -shared
 // into pna_tpu_torch/_build/.
@@ -24,24 +23,6 @@ void degree_count(const int32_t* receivers, const uint8_t* edge_mask,
     std::memset(out_deg, 0, sizeof(int32_t) * n_nodes);
     for (int64_t e = 0; e < n_edges; ++e) {
         if (edge_mask[e]) out_deg[receivers[e]]++;
-    }
-}
-
-// ELL construction: nbr[n * dmax + k] = edge id of node n's k-th in-edge.
-// Returns the max in-degree (caller must have dmax >= it, checked first via
-// degree_count).  mask uses uint8 0/1.
-void build_ell(const int32_t* receivers, const uint8_t* edge_mask,
-               int64_t n_edges, int64_t n_nodes, int64_t dmax,
-               int32_t* out_nbr, uint8_t* out_mask) {
-    std::memset(out_nbr, 0, sizeof(int32_t) * n_nodes * dmax);
-    std::memset(out_mask, 0, sizeof(uint8_t) * n_nodes * dmax);
-    std::vector<int64_t> fill(n_nodes, 0);
-    for (int64_t e = 0; e < n_edges; ++e) {
-        if (!edge_mask[e]) continue;
-        int64_t r = receivers[e];
-        int64_t k = fill[r]++;
-        out_nbr[r * dmax + k] = (int32_t)e;
-        out_mask[r * dmax + k] = 1;
     }
 }
 

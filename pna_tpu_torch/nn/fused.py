@@ -1,4 +1,4 @@
-"""Fused-towers PNA layer on every aggregation backend of the JAX layer.
+"""Fused-towers PNA layer on four aggregation backends.
 
 Counterpart of ``pna_tpu/nn/fused.py::PNALayerFused``.  The backends
 (``kernel=``):
@@ -8,22 +8,18 @@ Counterpart of ``pna_tpu/nn/fused.py::PNALayerFused``.  The backends
   by one kernel (``csr_bank.csr_messages``);
 * ``'csr_fused'``, the JAX ``'pallas_fused'``: pretrans and sketch in the
   kernels (``ops/csr_fused.py``, K3/K4);
-* ``'bucketed'``: dense reductions over the degree-bucketed layout
-  (``ops/bucketed.py``; the moment path when every aggregator derives from
-  the moments, else ``raw_bank``), the receiver gather a broadcast;
-* ``'ell'``: the ELL bank with its hand-written backward
-  (``ops/fused_vjp.py::make_raw_bank``);
 * ``'generic'``: the aggregator x scaler bank of ``nn/sparse.py::
-  aggregate_bank`` (ELL when the batch has the table, else the segment form,
-  with K1/K2 for its aggregators on the card), the only one that takes
-  ``identity``;
-* ``'auto'``: ``resolve_backend`` picks from the layout the batch carries.
+  aggregate_bank`` (the segment form, with K1/K2 for its aggregators on the
+  card), the only one that takes ``identity`` and the aggregators the CSR
+  bank lacks;
+* ``'auto'``: ``resolve_backend`` picks ``csr`` where it runs, else
+  ``generic``.
 
-``resolve_backend`` ranks bucketed > ELL > CSR kernels > generic, the JAX
-package's order, which was measured on a TPU; it has not been measured on
-the H100 yet.  ``'csr'`` and ``'csr_fused'`` need ``edge_ptr`` and raise
-``ValueError`` without it; a forced ``'bucketed'`` or ``'ell'`` on a batch
-without its table falls through to generic, as in JAX.
+The JAX layer's ``'bucketed'`` and ``'ell'`` backends, built so that a TPU
+avoids scatters, are not ported: on the H100 the ``csr`` step beat or tied
+them at every size read (PERF.md), and ``kernel='bucketed'`` or ``'ell'``
+raises ``ValueError``.  ``'csr'`` and ``'csr_fused'`` need ``edge_ptr`` and
+raise ``ValueError`` without it.
 
 The math is the JAX layer's:
 
@@ -39,13 +35,12 @@ The math is the JAX layer's:
   are formed (the first layer is linear, so ``h[snd] K_src + h[rcv] K_dst +
   b == u[snd] + v[rcv]``), with the edge-feature term ``e K_e`` per edge: on
   ``csr`` a kernel builds the [E, F] messages from them, on ``csr_fused``
-  K3/K4 build each message on chip; the other backends gather the rows and
-  multiply them by edge;
+  K3/K4 build each message on chip; ``generic`` gathers the rows and
+  multiplies them by edge;
 * a posttrans with the scaler axis folded into the output: the aggregator
-  tensor Z [N, A, T*Ft] meets a weight laid out to match it (on the
-  bucketed moment path, each aggregator meets its own slice of it as it is
-  derived), and the S scaler weights apply to the narrower [N, T, O, S]
-  result; the generic path contracts its materialised [N, S*A*T*Ft] bank;
+  tensor Z [N, A, T*Ft] meets a weight laid out to match it, and the S
+  scaler weights apply to the narrower [N, T, O, S] result; the generic path
+  contracts its materialised [N, S*A*T*Ft] bank;
 * graph-norm, masked batch-norm, dropout, the ``mixing`` linear,
   leaky_relu(0.01), and the residual when ``in_dim == out_dim``.
 
@@ -61,7 +56,7 @@ boundary edges.
 input, every matmul operand (the products are then taken and summed in
 float32, the JAX ``preferred_element_type=float32``: the operands are widened
 to float32, which is exact, and the matmul runs in float32), the message
-before the csr, bucketed and ELL banks (which widen it to float32), the
+before the csr bank (which widens it to float32), the
 ``csr_fused`` inputs u, v, ef and ke, and the scaler contraction's operands.
 Statistics, batch-norm, mixing and the residual stay float32.
 
@@ -103,14 +98,13 @@ from pna_tpu_torch.nn.layers import (Dropout, dense, xavier_uniform_gain,
                                      zeros_init)
 from pna_tpu_torch.nn.sparse import (MaskedBatchNorm, aggregate_bank,
                                      bank_layout, check_bank)
-from pna_tpu_torch.ops import (bucketed, csr_bank, csr_fused, fused_vjp,
-                               partial_stats)
-from pna_tpu_torch.ops.scalers import scaler_weights
+from pna_tpu_torch.ops import csr_bank, csr_fused, partial_stats
+from pna_tpu_torch.ops import scalers as scaler_ops
 from pna_tpu_torch.ops.segment import gather_rows
 from pna_tpu_torch.parallel import tower_tp
 from pna_tpu_torch.utils.profiling import span
 
-KERNELS = ('auto', 'csr', 'csr_fused', 'bucketed', 'ell', 'generic')
+KERNELS = ('auto', 'csr', 'csr_fused', 'generic')
 _RENAMED = {'pallas': 'csr', 'pallas_fused': 'csr_fused'}
 
 
@@ -129,48 +123,26 @@ def check_backend(kernel: str, compute_dtype=None) -> None:
 
 
 def resolve_backend(kernel: str, graph: Graph, aggregators: Sequence[str],
-                    scalers: Sequence[str], device) -> str:
-    """The backend a layer runs on this batch: 'bucketed', 'ell', 'csr',
-    'csr_fused' or 'generic' (``pna_tpu/nn/fused.py``'s choice).
+                    device) -> str:
+    """The backend a layer runs on this batch: 'csr', 'csr_fused' or
+    'generic'.
 
-    * 'bucketed' under 'auto' or 'bucketed' when the batch has
-      ``bucket_spec``, no aggregator is 'identity' and every aggregator is
-      one ``ops/bucketed.py`` computes;
-    * else 'ell' under 'auto' or 'ell' when it has ``nbr_edge_ids`` and the
-      ELL bank covers the aggregators and scalers;
-    * else 'csr' when forced, or under 'auto' on a ``cuda`` device when the
-      batch has ``edge_ptr`` and the CSR bank covers the aggregators (the
+    * 'csr' or 'csr_fused' when forced; on a batch without ``edge_ptr``, or
+      with aggregators their banks do not cover, they raise ``ValueError``;
+    * under 'auto', 'csr' on a ``cuda`` device when the batch has
+      ``edge_ptr`` and the CSR bank covers the aggregators (the
       JAX package takes its kernel under 'auto' only on a TPU: on the CPU
       'auto' resolves as it does there);
-    * else 'generic'.
-
-    'csr' or 'csr_fused' on a batch without ``edge_ptr``, or with
-    aggregators their banks do not cover, raises ``ValueError``."""
-    scalers_ok = all(s in fused_vjp._SCALERS for s in scalers)
-    no_ident = 'identity' not in aggregators
-    if kernel == 'csr_fused':
+    * else 'generic'."""
+    csr_ok = graph.edge_ptr is not None and csr_bank.supports(aggregators)
+    if kernel in ('csr', 'csr_fused'):
         if graph.edge_ptr is None:
-            raise ValueError("kernel='csr_fused' requires graph.edge_ptr "
+            raise ValueError(f"kernel={kernel!r} requires graph.edge_ptr "
                              "(batch_graphs(sort_edges=True))")
-        if not (scalers_ok and csr_bank.supports(aggregators)):
-            raise ValueError("kernel='csr_fused' requires supported "
-                             f"aggregators/scalers, got {aggregators}/"
-                             f"{scalers}")
-        return 'csr_fused'
-    if (kernel in ('auto', 'bucketed') and graph.bucket_spec is not None
-            and scalers_ok and no_ident and bucketed.supports(aggregators)):
-        return 'bucketed'
-    if (kernel in ('auto', 'ell') and graph.nbr_edge_ids is not None
-            and no_ident and fused_vjp.supports(aggregators, scalers)):
-        return 'ell'
-    csr_ok = (graph.edge_ptr is not None and scalers_ok
-              and csr_bank.supports(aggregators))
-    if kernel == 'csr':
         if not csr_ok:
-            raise ValueError("kernel='csr' requires graph.edge_ptr "
-                             "(batch_graphs(sort_edges=True)) and supported "
-                             "aggregators/scalers")
-        return 'csr'
+            raise ValueError(f"kernel={kernel!r} requires supported "
+                             f"aggregators, got {aggregators}")
+        return kernel
     if kernel == 'auto' and csr_ok and torch.device(device).type == 'cuda':
         return 'csr'
     return 'generic'
@@ -180,10 +152,10 @@ def backend_layout(backend: str, graph: Graph, max_degree: int = 0
                    ) -> Optional[csr_bank.CSRLayout]:
     """The CSR layout ``backend`` takes on this batch: the row pointers for
     'csr' and 'csr_fused', the sparse bank's (``bank_layout``) for
-    'generic', none for 'bucketed' and 'ell'."""
+    'generic'."""
     if backend in ('csr', 'csr_fused'):
         return csr_bank.layout_from_graph(graph, max_degree)
-    return bank_layout(graph, max_degree) if backend == 'generic' else None
+    return bank_layout(graph, max_degree)
 
 
 def _phase(name: str, device):
@@ -332,8 +304,7 @@ class PNALayerFused(nn.Module):
         """h [N, in_dim], e [E, edge_dim] (edge features) -> [N, out_dim].
         ``layout`` is the batch's CSR layout, shared by every layer; built
         here when not given and the backend takes it (``csr``,
-        ``csr_fused``, and ``generic`` on a batch with ``edge_ptr`` and no
-        ELL table).
+        ``csr_fused``, and ``generic`` on a batch with ``edge_ptr``).
 
         ``sender_table`` [Nl + P*H, in_dim]: the ghost table that
         ``graph.senders`` indexes (None: ``h`` itself).  ``overlap``: the
@@ -356,15 +327,13 @@ class PNALayerFused(nn.Module):
                                  "split edges' tables, and with edge "
                                  "features their split features), got "
                                  f"{len(overlap)}")
-            if not (all(s in fused_vjp._SCALERS for s in self.scalers)
-                    and partial_stats.supports(self.aggregators)):
+            if not partial_stats.supports(self.aggregators):
                 raise ValueError("the overlap path needs sketch-decomposable "
-                                 f"aggregators/scalers, got "
-                                 f"{self.aggregators}/{self.scalers}")
+                                 f"aggregators, got {self.aggregators}")
             backend = 'overlap'
         else:
             backend = resolve_backend(self.kernel, graph, self.aggregators,
-                                      self.scalers, h.device)
+                                      h.device)
         if layout is None and backend != 'overlap':
             layout = backend_layout(backend, graph, self.max_degree)
         hb = self._tower_input(h.to(cdt))             # this rank's towers
@@ -412,7 +381,7 @@ class PNALayerFused(nn.Module):
         src_rows = (hb if sender_table is None
                     else self._tower_input(sender_table.to(cdt)))
         dev = h.device
-        Z = moments = agg = None
+        Z = agg = None
         if backend == 'overlap':
             # local partial while the exchange is in flight, then boundary
             halo, s_l, r_l, m_l, s_b, r_b, m_b = overlap[:7]
@@ -468,45 +437,17 @@ class PNALayerFused(nn.Module):
         else:
             with _phase('pna.message', dev):
                 src = gather_rows(src_rows, graph.senders)
-                if graph.bucket_spec is not None:
-                    # the receiver gather is a broadcast in the bucketed
-                    # layout
-                    dst = bucketed.expand_to_edges(hb, graph.bucket_spec)
-                else:
-                    dst = gather_rows(hb, graph.receivers, graph.edge_ptr)
+                dst = gather_rows(hb, graph.receivers, graph.edge_ptr)
                 msg = pretrans_edges(src, dst,
                                      e if self.edge_features else None)
-                if backend != 'generic':
-                    # stored in the compute dtype; the banks widen to
-                    # float32
-                    msg = msg.to(cdt).reshape(E, T * Ft)
                 self_msg = None
-                if backend == 'generic' and 'identity' in self.aggregators:
+                if 'identity' in self.aggregators:
                     self_msg = pretrans_nodes(hb).reshape(N, T * Ft)
             with _phase('pna.aggregate', dev):
-                if backend == 'bucketed':
-                    spec, in_deg = graph.bucket_spec, graph.in_deg
-                    if all(a in bucketed.MOMENT_DERIVABLE
-                           for a in self.aggregators):
-                        moments = bucketed.moment_stats(msg, spec,
-                                                        in_deg=in_deg)
-                    else:
-                        Z = bucketed.raw_bank(msg, spec, self.aggregators,
-                                              in_deg=in_deg)
-                    deg = (in_deg if in_deg is not None else
-                           torch.from_numpy(bucketed.degrees(spec)).to(
-                               h.device))
-                elif backend == 'ell':
-                    bank = fused_vjp.make_raw_bank(graph.receivers,
-                                                   graph.edge_mask)
-                    Z = bank(msg, graph.nbr_edge_ids, graph.nbr_mask,
-                             self.aggregators)
-                    deg = graph.nbr_mask.sum(dim=1).to(torch.float32)
-                else:
-                    agg = aggregate_bank(graph, msg.reshape(E, T * Ft),
-                                         self.aggregators, self.scalers,
-                                         self.avg_d, self_msg=self_msg,
-                                         layout=layout)
+                agg = aggregate_bank(graph, msg.reshape(E, T * Ft),
+                                     self.aggregators, self.scalers,
+                                     self.avg_d, self_msg=self_msg,
+                                     layout=layout)
 
         # ---- posttrans with the scaler axis folded into the output ----
         with _phase('pna.update', dev):
@@ -527,7 +468,8 @@ class PNALayerFused(nn.Module):
                     _round(agg.reshape(N, S * A, T, Ft), cdt),
                     _round(k_agg, cdt)) + bp
             else:
-                w = scaler_weights(self.scalers, deg, self.avg_d)  # [S, N]
+                w = scaler_ops.scaler_weights(self.scalers, deg,
+                                              self.avg_d)   # [S, N]
                 # rows of kp per tower: [0:Ft] = h part;
                 # Ft + s*A*Ft + a*Ft + f
                 k_agg = kp[:, Ft:].reshape(T, S, A, Ft, Fo)
@@ -536,22 +478,11 @@ class PNALayerFused(nn.Module):
                 else:
                     out = _ein_shared(hb, k_h, cdt)
                 eye = torch.eye(T, dtype=kp.dtype, device=kp.device)
-                if moments is not None:
-                    # each aggregator derived and contracted with its own
-                    # slice of the weight: the stacked Z is never formed
-                    y = 0
-                    for i, a in enumerate(self.aggregators):
-                        Za = bucketed.derive_aggregator(a, *moments)
-                        Wa = _round(torch.einsum(
-                            'tsfo,tu->tfuos', k_agg[:, :, i], eye).reshape(
-                                T * Ft, T * Fo * S), cdt)
-                        y = y + (_round(Za, cdt) @ Wa).reshape(N, T, Fo, S)
-                else:
-                    W = _round(torch.einsum(
-                        'tsafo,tu->atfuos', k_agg, eye).reshape(
-                            A * T * Ft, T * Fo * S), cdt)
-                    y = (_round(Z.reshape(N, A * T * Ft), cdt) @ W).reshape(
-                        N, T, Fo, S)
+                W = _round(torch.einsum(
+                    'tsafo,tu->atfuos', k_agg, eye).reshape(
+                        A * T * Ft, T * Fo * S), cdt)
+                y = (_round(Z.reshape(N, A * T * Ft), cdt) @ W).reshape(
+                    N, T, Fo, S)
                 out = out + torch.einsum('ntos,sn->nto', _round(y, cdt),
                                          _round(w, cdt)) + bp
             out = self.posttrans.rest(out, cdt).reshape(N, T * Fo)

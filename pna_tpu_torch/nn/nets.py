@@ -21,8 +21,7 @@ Counterpart of ``pna_tpu/nn/nets.py``:
 backend of ``nn/fused.py``; the port's default is ``'csr'`` where the JAX
 nets' is ``'auto'``) and ``compute_dtype`` (float32 or bfloat16) reach every
 fused layer.  The CSR layout of a batch is built once per forward and shared
-by every layer, and only where the layers take it: a bucketed batch has no
-``edge_ptr``, and the bucketed and ELL backends need no layout.
+by every layer, where the batch has ``edge_ptr``.
 
 ``remat=True`` (``PNANetMolecules``, fused layers) recomputes each layer in
 the backward pass (``torch.utils.checkpoint``, non-reentrant), as the JAX
@@ -166,7 +165,7 @@ class _PNAStack(nn.Module):
             return bank_layout(graph, self.max_degree)
         first = self.layers[0]
         return backend_layout(resolve_backend(
-            first.kernel, graph, first.aggregators, first.scalers, device),
+            first.kernel, graph, first.aggregators, device),
             graph, self.max_degree)
 
     def _stack(self, graph: Graph, h: torch.Tensor,

@@ -10,24 +10,16 @@ the JAX layers run on the JAX package's plain segment ops, on the card too:
 they do not go through the CSR bank.
 
 The bank concatenates the aggregators on the feature axis, then one block
-per scaler, as the JAX bank does.  Where it runs:
-
-* a batch that carries the ELL layout (``Graph.nbr_edge_ids``) takes every
-  aggregator through ``ops/ell.py`` (a gather and masked reductions over
-  the padded neighbour axis, plain torch on every device), and the scalers
-  take the degree of its rows;
-* otherwise, on the card, the aggregators the CSR kernels compute
-  (``csr_bank.AGGS``: mean, sum, max, min, var, std) go through
-  ``csr_raw_bank`` (K1 forward, K2 backward) in one call, given the batch's
-  CSR layout; the others (identity, normalised_mean, softmax, softmin,
-  moments), every aggregator on the CPU, and every aggregator of a batch
-  without ``edge_ptr`` (a bucketed one), take the segment form of
-  ``ops/aggregators.py``, which is also the plain version the card is held
-  against.  The scalers take the raw in-degree of the receiver (0 on pad and
-  isolated nodes).
-
-The choice follows the batch's layout, the aggregator set and the device
-only.  ``bank_layout`` gives the CSR layout a batch's bank needs, or None.
+per scaler, as the JAX bank does.  On the card the aggregators the CSR
+kernels compute (``csr_bank.AGGS``: mean, sum, max, min, var, std) go
+through ``csr_raw_bank`` (K1 forward, K2 backward) in one call, given the
+batch's CSR layout; the others (identity, normalised_mean, softmax, softmin,
+moments), every aggregator on the CPU, and every aggregator of a batch
+without ``edge_ptr`` take the segment form of ``ops/aggregators.py``, which
+is also the plain version the card is held against.  The scalers take the
+raw in-degree of the receiver (0 on pad and isolated nodes).  The choice
+follows the batch's ``edge_ptr``, the aggregator set and the device only.
+``bank_layout`` gives the CSR layout a batch's bank needs, or None.
 
 Pretrans concatenates (src, dst[, edge]), the DGL tower's order; ``identity``
 aggregates the message a node sends itself (pretrans of (h, h[, 0])).
@@ -49,7 +41,6 @@ from pna_tpu_torch.nn.layers import (MLP, Dropout, FCLayer, dense,
 from pna_tpu_torch.ops import csr_bank
 from pna_tpu_torch.ops import segment as seg
 from pna_tpu_torch.ops.aggregators import SEGMENT_AGGREGATORS, SegmentCtx
-from pna_tpu_torch.ops.ell import ELL_AGGREGATORS, EllCtx
 from pna_tpu_torch.ops.scalers import SCALERS
 from pna_tpu_torch.parallel import collectives
 
@@ -57,9 +48,8 @@ from pna_tpu_torch.parallel import collectives
 def bank_layout(graph: Graph, max_degree: int = 0
                 ) -> Optional[csr_bank.CSRLayout]:
     """The CSR layout ``aggregate_bank`` takes for this batch: None when the
-    batch carries the ELL table (the bank then takes that) or has no
-    ``edge_ptr``."""
-    if graph.nbr_edge_ids is not None or graph.edge_ptr is None:
+    batch has no ``edge_ptr``."""
+    if graph.edge_ptr is None:
         return None
     return csr_bank.layout_from_graph(graph, max_degree)
 
@@ -101,23 +91,12 @@ def aggregate_bank(graph: Graph, msg: torch.Tensor,
                    layout: Optional[csr_bank.CSRLayout] = None
                    ) -> torch.Tensor:
     """Aggregator x scaler cross-product over edge messages: msg [E, F] ->
-    [N, S*A*F].  On a batch with the ELL table every aggregator goes through
-    ``ops/ell.py``; otherwise ``layout`` is the batch's CSR layout (built
-    here when not given and the batch has ``edge_ptr``)."""
-    if graph.nbr_edge_ids is not None:
-        out_deg = (graph.out_degrees(msg.dtype)
-                   if 'normalised_mean' in aggregators else None)
-        ctx = EllCtx.create(msg, graph.nbr_edge_ids, graph.nbr_mask,
-                            self_msg=self_msg, senders=graph.senders,
-                            out_deg=out_deg)
-        h = torch.cat([ELL_AGGREGATORS[a](ctx) for a in aggregators], dim=-1)
-        deg = ctx.raw_cnt[:, 0]
-    else:
-        if layout is None:
-            layout = bank_layout(graph)
-        h = node_bank(graph, msg, aggregators, layout, self_msg)
-        deg = (layout.deg if layout is not None
-               else graph.in_degrees(msg.dtype))
+    [N, S*A*F].  ``layout`` is the batch's CSR layout (built here when not
+    given and the batch has ``edge_ptr``)."""
+    if layout is None:
+        layout = bank_layout(graph)
+    h = node_bank(graph, msg, aggregators, layout, self_msg)
+    deg = layout.deg if layout is not None else graph.in_degrees(msg.dtype)
     return torch.cat([SCALERS[s](h, deg, avg_d) for s in scalers], dim=-1)
 
 

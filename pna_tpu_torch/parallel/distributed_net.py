@@ -216,8 +216,7 @@ class DistributedGATNet(nn.Module):
 
 
 def _local_graph(nl: int, senders_l, receivers_l, edge_mask, node_mask,
-                 bucket_spec=None, in_deg=None, edge_ptr=None,
-                 max_in_degree: int = 0) -> Graph:
+                 edge_ptr=None, max_in_degree: int = 0) -> Graph:
     """One part's graph; ``node_feats`` is a zero-width placeholder that
     gives the node count (the layers take h separately)."""
     dev = senders_l.device
@@ -227,8 +226,7 @@ def _local_graph(nl: int, senders_l, receivers_l, edge_mask, node_mask,
                                             device=dev),
                  node_mask=node_mask, edge_mask=edge_mask,
                  graph_mask=torch.ones(1, dtype=torch.bool, device=dev),
-                 bucket_spec=bucket_spec, in_deg=in_deg, edge_ptr=edge_ptr,
-                 max_in_degree=max_in_degree)
+                 edge_ptr=edge_ptr, max_in_degree=max_in_degree)
 
 
 def full_graph(part: EdgePartition, senders: np.ndarray,
@@ -288,8 +286,6 @@ def _const_tables(part: EdgePartition, net: DistributedPNANet,
                   receivers=part.receivers_local, edge_mask=part.edge_mask,
                   send_idx=part.send_idx, send_mask=part.send_mask,
                   node_mask=part.node_mask)
-    if part.bucket_spec is not None:
-        tables['in_deg'] = part.in_deg
     if part.edge_ptr is not None:
         tables['edge_ptr'] = part.edge_ptr
     if efeats is not None:
@@ -336,7 +332,6 @@ def part_tables(part: EdgePartition, net, index: int,
         max_deg = int(np.diff(ptr).max(initial=0))
     g = _local_graph(part.nodes_per_part, row['senders'], row['receivers'],
                      row['edge_mask'], row['node_mask'],
-                     bucket_spec=part.bucket_spec, in_deg=row.get('in_deg'),
                      edge_ptr=row.get('edge_ptr'), max_in_degree=max_deg)
     split = None
     if net.overlap:

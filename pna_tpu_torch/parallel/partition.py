@@ -24,20 +24,19 @@ separates the two kinds, so that the local partial aggregation can run while
 the exchange is in flight (the layer's ``overlap`` path).
 ``sort_partition_edges`` sorts each part by receiver and adds ``edge_ptr``,
 the layout of the CSR kernels (K1-K4), which keep a hub's in-edges on
-one part whatever its degree; ``bucketize_partition`` builds the
-degree-bucketed layout of the ``bucketed`` backend.
+one part whatever its degree.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pna_tpu_torch import native
-from pna_tpu_torch.graph import Graph, _choose_classes, _round_up
+from pna_tpu_torch.graph import Graph
 from pna_tpu_torch.ops.segment import gather_rows
 from pna_tpu_torch.parallel import collectives, multihost
 
@@ -63,18 +62,11 @@ class EdgePartition:
     node_mask: np.ndarray        # [P, Nl] bool — real (non-padding) nodes
     # locality reordering (reorder='locality'): node_order[i] = ORIGINAL node id
     # living at partitioned position i.  Feed features as feats[node_order]
-    # (see scatter_features); None = identity (no reordering).  After
-    # :func:`bucketize_partition` the array is full-length [P*Nl] with -1 at
-    # dummy slots (real nodes are interleaved with bucket padding).
+    # (see scatter_features); None = identity (no reordering).
     node_order: Optional[np.ndarray] = None
-    # degree-bucketed local layout (:func:`bucketize_partition`): static
-    # ((degree, capacity), ...) shared by every part, plus the true per-node
-    # in-degree [P, Nl].  None = plain receiver-grouped layout.
-    bucket_spec: Optional[Tuple[Tuple[int, int], ...]] = None
-    in_deg: Optional[np.ndarray] = None
-    # ORIGINAL edge index living at each local slot (-1 = padding/dummy).
+    # ORIGINAL edge index living at each local slot (-1 = padding).
     # Lets per-edge data (edge features live with their edge: no exchange)
-    # follow the edges through partitioning/sorting/bucketizing:
+    # follow the edges through partitioning and sorting:
     # ``scatter_edge_features``.
     edge_origin: Optional[np.ndarray] = None    # [P, El] int64
     # CSR row pointers over the RECEIVER-SORTED local edge list
@@ -89,11 +81,8 @@ class EdgePartition:
         inv = np.empty(n, dtype=np.int64)
         if self.node_order is None:
             inv[:] = np.arange(n)
-        elif len(self.node_order) == n:
+        else:
             inv[self.node_order] = np.arange(n)
-        else:   # full-length order with -1 dummy slots (bucketized)
-            real = np.nonzero(self.node_order >= 0)[0]
-            inv[self.node_order[real]] = real
         return inv
 
     def scatter_features(self, feats: np.ndarray) -> np.ndarray:
@@ -114,7 +103,7 @@ class EdgePartition:
     def scatter_edge_features(self, efeats: np.ndarray) -> np.ndarray:
         """Global [num_edges, Fe] per-edge data -> sharded [P, El, Fe]
         following the edges through the partition layout (zeros at
-        padding/dummy slots)."""
+        padding slots)."""
         if self.edge_origin is None:
             raise ValueError("partition carries no edge_origin map")
         p, el = self.edge_origin.shape
@@ -264,11 +253,10 @@ def sort_partition_edges(part: EdgePartition) -> EdgePartition:
     """Receiver-sort each part's local edges and build per-part CSR
     ``edge_ptr``: the layout of the CSR kernels
     (``PNALayerFused(kernel='csr')`` and ``'csr_fused'``), which a hub's
-    in-degree does not blow up as it does the bucket and ELL tables.  Real
-    edges come first (stable by local receiver),
-    padding at the tail; ghost sender ids are preserved untouched.
+    in-degree does not blow up.  Real edges come first (stable by local
+    receiver), padding at the tail; ghost sender ids are preserved
+    untouched.
     """
-    assert part.bucket_spec is None, "sort needs the plain layout"
     Pn, nl, el = part.num_parts, part.nodes_per_part, part.edges_per_part
     senders_local = np.zeros_like(part.senders_local)
     receivers_local = np.zeros_like(part.receivers_local)
@@ -322,8 +310,7 @@ class SplitEdges:
 
 
 def split_edges(part: EdgePartition, pad_multiple: int = 8) -> SplitEdges:
-    """Split a (non-bucketized) partition's edges by sender locality."""
-    assert part.bucket_spec is None, "split_edges needs the plain layout"
+    """Split a partition's edges by sender locality."""
     Pn, nl = part.num_parts, part.nodes_per_part
     loc_idx, bnd_idx = [], []
     for p in range(Pn):
@@ -356,134 +343,6 @@ def split_edges(part: EdgePartition, pad_multiple: int = 8) -> SplitEdges:
     return SplitEdges(senders_local=sl, receivers_local=rl, mask_local=ml,
                       senders_bound=sb, receivers_bound=rb, mask_bound=mb,
                       idx_local=il, idx_bound=ib)
-
-
-def bucketize_partition(part: EdgePartition,
-                        max_buckets: int = 4) -> EdgePartition:
-    """Rewrite a partition's per-part edge lists into the degree-bucketed
-    static layout, so ``PNALayerFused(kernel='bucketed')`` runs inside the
-    distributed step with no gather or scatter in the aggregation.
-
-    The bucket classes and capacities (``bucket_spec``) are chosen globally —
-    identical on every part, so every rank runs the same shapes.  Local
-    node ids are permuted per part (nodes grouped by in-degree class, real
-    nodes first within each class in their previous order); ``send_idx``
-    values and local sender ids are relabeled, ghost-table offsets shift from
-    the old ``Nl`` to the new one, and ``node_order`` becomes a full-length
-    [P*Nl_new] map with -1 at dummy slots (``scatter_features`` /
-    ``gather_outputs`` / ``full_graph`` all honor it).
-    """
-    Pn, nl_old = part.num_parts, part.nodes_per_part
-    assert part.bucket_spec is None, "partition already bucketized"
-
-    deg = np.zeros((Pn, nl_old), np.int64)
-    for p in range(Pn):
-        np.add.at(deg[p], part.receivers_local[p][part.edge_mask[p]], 1)
-        deg[p][~part.node_mask[p]] = 0
-
-    counts: Dict[int, int] = {}
-    for p in range(Pn):
-        for d in deg[p][part.node_mask[p]]:
-            counts[int(d)] = counts.get(int(d), 0) + 1
-    cls_of = _choose_classes(counts, max_buckets)
-    cls_of[0] = 0
-    max_d_obs = int(deg.max(initial=0))
-    cls_arr = np.zeros(max_d_obs + 1, np.int64)
-    for d, D in cls_of.items():
-        cls_arr[d] = D
-
-    # capacity per class = max real count over parts, sublane-aligned
-    caps: Dict[int, int] = {}
-    for p in range(Pn):
-        dp = cls_arr[deg[p][part.node_mask[p]]]
-        for D, c in zip(*np.unique(dp, return_counts=True)):
-            caps[int(D)] = max(caps.get(int(D), 0), int(c))
-    if not caps:
-        caps = {0: 1}
-    caps = {d: _round_up(c, 8) for d, c in caps.items()}
-    spec = tuple(sorted((int(d), int(c)) for d, c in caps.items()))
-    node_off: Dict[int, int] = {}
-    edge_off: Dict[int, int] = {}
-    n_off = e_off = 0
-    for d, c in spec:
-        node_off[d] = n_off
-        edge_off[d] = e_off
-        n_off += c
-        e_off += c * d
-    nl_new, el_new = n_off, max(e_off, 8)
-
-    senders_local = np.zeros((Pn, el_new), np.int32)
-    receivers_local = np.zeros((Pn, el_new), np.int32)
-    edge_mask = np.zeros((Pn, el_new), bool)
-    node_mask = np.zeros((Pn, nl_new), bool)
-    in_deg = np.zeros((Pn, nl_new), np.float32)
-    send_idx = np.zeros_like(part.send_idx)
-    node_order = np.full(Pn * nl_new, -1, np.int64)
-    edge_origin = (np.full((Pn, el_new), -1, np.int64)
-                   if part.edge_origin is not None else None)
-    H = part.halo_size
-
-    for p in range(Pn):
-        new_of_old = np.full(nl_old, -1, np.int64)
-        fill = {d: 0 for d, _ in spec}
-        for old in np.nonzero(part.node_mask[p])[0]:
-            D = int(cls_arr[deg[p, old]])
-            new_of_old[old] = node_off[D] + fill[D]
-            fill[D] += 1
-        real_new = new_of_old[part.node_mask[p]]
-        node_mask[p, real_new] = True
-        in_deg[p, real_new] = deg[p][part.node_mask[p]]
-        # original-id map for scatter/gather (old partition may itself carry
-        # a locality order)
-        old_pos = p * nl_old + np.nonzero(part.node_mask[p])[0]
-        if part.node_order is None:
-            orig = old_pos
-        else:
-            orig = part.node_order[old_pos]
-        node_order[p * nl_new + real_new] = orig
-
-        # dummy self-loop slots keep every [c, d, F] reshape dense
-        for d, c in spec:
-            if d == 0:
-                continue
-            ids = (node_off[d] + np.repeat(np.arange(c), d)).astype(np.int32)
-            senders_local[p, edge_off[d]:edge_off[d] + c * d] = ids
-            receivers_local[p, edge_off[d]:edge_off[d] + c * d] = ids
-
-        er = np.nonzero(part.edge_mask[p])[0]
-        if len(er):
-            r_old = part.receivers_local[p][er]
-            r_new = new_of_old[r_old]
-            order = np.argsort(r_new, kind='stable')
-            e_sorted = er[order]
-            r_sorted = r_new[order]
-            D_sorted = cls_arr[deg[p, r_old[order]]]
-            slot = (np.arange(len(e_sorted))
-                    - np.searchsorted(r_sorted, r_sorted, side='left'))
-            off = np.asarray([edge_off[int(D)] for D in D_sorted])
-            noffs = np.asarray([node_off[int(D)] for D in D_sorted])
-            pos = off + (r_sorted - noffs) * D_sorted + slot
-            s_old = part.senders_local[p][e_sorted]
-            local = s_old < nl_old
-            s_new = np.where(local,
-                             new_of_old[np.minimum(s_old, nl_old - 1)],
-                             nl_new + (s_old - nl_old))
-            senders_local[p, pos] = s_new.astype(np.int32)
-            receivers_local[p, pos] = r_sorted.astype(np.int32)
-            edge_mask[p, pos] = True
-            if edge_origin is not None:
-                edge_origin[p, pos] = part.edge_origin[p][e_sorted]
-
-        sm = part.send_mask[p]
-        send_idx[p][sm] = new_of_old[part.send_idx[p][sm]].astype(np.int32)
-
-    return EdgePartition(
-        num_parts=Pn, nodes_per_part=nl_new, halo_size=H,
-        edges_per_part=el_new, num_nodes=part.num_nodes,
-        senders_local=senders_local, receivers_local=receivers_local,
-        edge_mask=edge_mask, send_idx=send_idx, send_mask=part.send_mask,
-        node_mask=node_mask, node_order=node_order,
-        bucket_spec=spec, in_deg=in_deg, edge_origin=edge_origin)
 
 
 def halo_exchange(feats_local: torch.Tensor, send_idx: torch.Tensor,

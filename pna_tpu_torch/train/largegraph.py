@@ -41,7 +41,6 @@ from pna_tpu_torch.parallel.distributed_net import (DistributedGATNet,
                                                     DistributedPNANet,
                                                     mesh_groups, part_tables)
 from pna_tpu_torch.parallel.partition import (EdgePartition,
-                                              bucketize_partition,
                                               partition_edges,
                                               powerlaw_graph,
                                               sort_partition_edges)
@@ -49,7 +48,7 @@ from pna_tpu_torch.utils.checkpoint import (CheckpointManager,
                                             load_checkpoint, save_checkpoint)
 from pna_tpu_torch.utils.profiling import StepTimer, span
 
-KERNELS = ('auto', 'bucketed', 'generic', 'csr', 'csr_fused')
+KERNELS = ('auto', 'generic', 'csr', 'csr_fused')
 MODELS = ('pna', 'gat')
 
 
@@ -285,9 +284,7 @@ def build_problem(cfg: LargeGraphConfig, device=None):
                   f"{int(counts[heavy])} of {cfg.num_edges} edges): "
                   f"{choice.reason}", flush=True)
 
-    if kernel == 'bucketed':
-        part = bucketize_partition(part)
-    elif kernel in ('csr', 'csr_fused'):
+    if kernel in ('csr', 'csr_fused'):
         part = sort_partition_edges(part)
 
     feats = rng.randn(cfg.num_nodes, cfg.feat_dim).astype(np.float32)

@@ -32,15 +32,10 @@ the backward (``backward_s``), Adam's step (``optimizer_s``) and the wait
 for each step's loss (``sync_s``), and the pass's number of steps
 (``train_steps``).
 
-``bucket_by_degree=True`` collates every batch, evaluation included, in the
-degree-bucketed layout at capacities ``fit`` derives once over all three
-splits (``derive_bucket_caps``), so all batches share one shape; the net
-then needs a backend that runs on that layout (``kernel='auto'``,
-``'bucketed'`` or ``'generic'``: the CSR backends raise without
-``edge_ptr``).  The JAX package defaults to it from measurements on a TPU;
-the port defaults to False, the CSR batches its CLIs train on: on the H100
-the bucketed step takes longer than the ``csr`` one (``python -m
-pna_tpu_torch.bench --kernel bucketed`` against the default ``csr``).
+Every batch is receiver-sorted CSR (``data/molecules.py::batch_iterator``).
+The JAX trainer's degree-bucketed batches, its default from measurements on
+a TPU, are not ported: on the H100 the bucketed step took longer than the
+``csr`` one (PERF.md).
 """
 
 from __future__ import annotations
@@ -52,7 +47,7 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
-from pna_tpu_torch.data.molecules import batch_iterator, derive_bucket_caps
+from pna_tpu_torch.data.molecules import batch_iterator
 from pna_tpu_torch.device import DeviceLike, resolve_device
 from pna_tpu_torch.train import metrics as M
 from pna_tpu_torch.utils.checkpoint import CheckpointManager, save_checkpoint
@@ -86,8 +81,6 @@ class PipelineConfig:
     # resume=True restores 'latest' and continues the run
     checkpoint_dir: Optional[str] = None
     resume: bool = False
-    # degree-bucketed batches at dataset-wide capacities (module docstring)
-    bucket_by_degree: bool = False
 
 
 def make_optimizer(model: torch.nn.Module,
@@ -110,8 +103,7 @@ def _lr(optimizer: torch.optim.Optimizer) -> float:
 
 
 class RealworldTrainer:
-    """Trainer of the PNANet* models on batched graphs (CSR, or bucketed
-    under ``bucket_by_degree``).
+    """Trainer of the PNANet* models on batched CSR graphs.
 
     ``forward_args(graph)`` adapts the model's call to the benchmark:
     molecules pass (graph, atom types, bond types or None), superpixels
@@ -136,8 +128,6 @@ class RealworldTrainer:
         self.scheduler = make_scheduler(self.optimizer, cfg)
         # host seconds (PASS_SPANS) and steps of the last run_epoch
         self.last_pass: dict = {}
-        # bucket capacities of every batch (bucket_by_degree), set by fit
-        self.bucket_caps: Optional[dict] = None
 
     # -- epochs -----------------------------------------------------------
     def _epoch_metric(self, outs, labels, masks) -> float:
@@ -162,8 +152,7 @@ class RealworldTrainer:
         model.train(train)
         losses, outs, labels_all, masks = [], [], [], []
         t_start, since = time.perf_counter(), span_seconds()
-        batches = batch_iterator(records, batch_size, seed, shuffle=train,
-                                 bucket_caps=self.bucket_caps)
+        batches = batch_iterator(records, batch_size, seed, shuffle=train)
         while True:
             with span('pna.collate'):
                 item = next(batches, None)
@@ -229,11 +218,6 @@ class RealworldTrainer:
         test metric.  Returns (model, best, history)."""
         cfg = self.cfg
         epochs = epochs if epochs is not None else cfg.epochs
-        if cfg.bucket_by_degree and self.bucket_caps is None:
-            # over all splits, so evaluation batches share the one shape
-            self.bucket_caps = derive_bucket_caps(
-                list(dataset.train) + list(dataset.val) + list(dataset.test),
-                cfg.batch_size)
         print("MODEL/Total parameters:", param_count(self.model))
         logger = None
         if cfg.metrics_path or cfg.tensorboard_dir:

@@ -59,14 +59,11 @@ def run_world(fn_name, world, out, *args, timeout=240):
 
 
 def _partition(case):
-    from pna_tpu_torch.parallel.partition import (bucketize_partition,
-                                                  partition_edges,
+    from pna_tpu_torch.parallel.partition import (partition_edges,
                                                   sort_partition_edges)
     part = partition_edges(case['send'], case['recv'], case['num_nodes'],
                            case['d_graph'])
-    if case.get('layout') == 'bucketed':
-        part = bucketize_partition(part)
-    elif case.get('layout') == 'sorted':
+    if case.get('layout') == 'sorted':
         part = sort_partition_edges(part)
     return part
 

@@ -8,7 +8,9 @@ package's public names against the JAX package's.
 ``bench.py``'s jitted step with ``flat_opt=True`` against 3 of the twin's with
 ``FlatAdam``, on ``csr``/``pallas`` and ``csr_fused``/``pallas_fused`` (the
 JAX kernels in interpret mode, as ``tests/test_torch_net.py`` runs them),
-``bucketed``, ``ell`` and ``auto``.  Tolerances, those of
+and ``bench.py``'s ``bucketed``, ``ell`` and ``auto`` (on its bucketed
+batch) against the twin's ``csr``, ``csr`` and ``auto`` on its sorted one:
+the port has no bucketed or ELL layout.  Tolerances, those of
 ``test_torch_net.py::test_adam_steps_match_optax``: losses rtol 1e-4; after
 the steps every parameter and batch-norm statistic within 3 steps x 2 x lr
 = 6e-3 (Adam turns float32 noise in a gradient near 0 into a step of up to
@@ -48,6 +50,8 @@ LR = 1e-3
 STEPS = 3
 NARROW = dict(hidden_dim=10, out_dim=8, edge_dim=4, towers=2)
 JAX_KERNEL = {'csr': 'pallas', 'csr_fused': 'pallas_fused'}
+# the twin's backend for bench.py's layouts the port does not have
+PORT_KERNEL = {'bucketed': 'csr', 'ell': 'csr'}
 
 
 class _InterpretNet(jnets.PNANetMolecules):
@@ -78,7 +82,8 @@ def test_twin_steps_match_bench(monkeypatch, kernel, bf16):
         16, kernel=JAX_KERNEL.get(kernel, kernel), flat_opt=True,
         compute_dtype=jnp.bfloat16 if bf16 else None, **NARROW)
     step, model, opt, _, n_edges, n_nodes = bench.build_bench(
-        16, kernel=kernel, flat_opt=True, device='cpu',
+        16, kernel=PORT_KERNEL.get(kernel, kernel), flat_opt=True,
+        device='cpu',
         compute_dtype=torch.bfloat16 if bf16 else None, **NARROW)
     assert isinstance(opt, FlatAdam)
     assert (n_edges, n_nodes) == (ne_j, nn_j)
@@ -258,13 +263,13 @@ def test_run_config_and_interleaved_runners():
     assert r['n_edges'] * 4 / (r['step_ms'] / 1e3) == pytest.approx(
         r['edges_per_sec'], rel=1e-9)
     assert len(r['block_ms']) == 3 and r['step_ms'] == min(r['block_ms'])
-    a = bench.BenchRunner(8, True, None, 'ell', device='cpu', **NARROW)
+    a = bench.BenchRunner(8, True, None, 'auto', device='cpu', **NARROW)
     b = bench.BenchRunner(8, True, None, 'csr', device='cpu', flat_opt=True,
                           **NARROW)
     for _ in range(2):
         for runner in (a, b, b, a):
             runner.time_block(1)
-    assert a.backends() == ['ell'] * 4 and b.backends() == ['csr'] * 4
+    assert a.backends() == ['generic'] * 4 and b.backends() == ['csr'] * 4
     assert len(a.blocks) == len(b.blocks) == 4
     assert a.report()['spread_ms'] >= 0
 
@@ -275,6 +280,23 @@ def test_jax_kernel_names_raise(kernel):
         bench.main(['--kernel', kernel, '--device', 'cpu'])
     with pytest.raises(ValueError, match="csr"):
         bench.build_bench(8, kernel=kernel, device='cpu')
+
+
+@pytest.mark.parametrize("kernel", ['bucketed', 'ell'])
+@pytest.mark.parametrize("entry", ['bench', 'largegraph'])
+def test_tpu_layout_kernels_raise(entry, kernel):
+    """The JAX package's bucketed and ELL backends, which the port does not
+    have, are refused, naming the kernel, at the entry points that check a
+    kernel name before building a layer: the twin's flag ("unknown kernel")
+    and the large-graph trainer's ("not in KERNELS"; the layer's own check:
+    tests/test_torch_fused_layer.py::test_unported_options_raise)."""
+    from pna_tpu_torch.train import largegraph
+    with pytest.raises(ValueError, match=f"kernel '{kernel}'"):
+        if entry == 'bench':
+            bench.main(['--kernel', kernel, '--device', 'cpu'])
+        else:
+            largegraph.build_problem(largegraph.LargeGraphConfig(
+                kernel=kernel, num_nodes=50, num_edges=200), 'cpu')
 
 
 @pytest.mark.parametrize("jax_mod,port_mod", [

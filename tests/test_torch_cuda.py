@@ -848,7 +848,7 @@ def test_cuda_sparse_gcn_gat_gin_match_cpu(layer):
 
 
 # ---------------------------------------------------------------------------
-# the layouts: bucketed, ELL and generic backends, remat (no JAX here)
+# the generic backend and remat (no JAX here)
 # ---------------------------------------------------------------------------
 
 LAYOUT_NET = dict(num_atom_type=28, num_bond_type=4, hidden_dim=16,
@@ -880,27 +880,21 @@ def _hold_grads(card, cpu, tol, norm=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,layout,bf16", [
-    ('auto', 'bucketed', False), ('auto', 'bucketed', True),
-    ('ell', 'ell', False), ('generic', 'csr', False)])
+@pytest.mark.parametrize("kernel,layout,bf16", [('generic', 'csr', False)])
 def test_cuda_layout_step_matches_cpu(kernel, layout, bf16):
     """One training step of a small ZINC net on the card against the same
-    weights on the CPU, per backend: loss rtol 1e-4 (bfloat16 1e-2), every
-    gradient within 2e-3 of its scale (bfloat16 5e-2 of its norm); the
-    bucketed and ELL steps launch none of K1 to K4, the generic step (with
-    identity, on a CSR batch) one K1 and one K2 per layer through the
-    sparse bank; the row sum per layer: the sender gather on bucketed (its
-    receiver side is a broadcast), both gathers on ELL, both and the
-    in-degree count of identity's segment form on generic; one for the
-    readout and two for the atom and bond lookups."""
+    weights on the CPU: loss rtol 1e-4 (bfloat16 1e-2), every gradient
+    within 2e-3 of its scale (bfloat16 5e-2 of its norm); the generic step
+    (with identity, on a CSR batch) launches one K1 and one K2 per layer
+    through the sparse bank; the row sum per layer: both gathers and the
+    in-degree count of identity's segment form; one for the readout and
+    two for the atom and bond lookups."""
     from pna_tpu_torch.data.molecules import ZincDataset, collate_records
     from pna_tpu_torch.train.step import loss_and_grads
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     ds = ZincDataset.synthetic(n_train=24, n_val=1, n_test=1, seed=2)
-    kw = {'bucketed': dict(bucket_by_degree=True),
-          'ell': dict(with_ell=True), 'csr': {}}[layout]
-    graph, labels = collate_records(ds.train, **kw)
+    graph, labels = collate_records(ds.train)
     net_kw = dict(kernel=kernel,
                   compute_dtype=torch.bfloat16 if bf16 else None)
     if kernel == 'generic':
@@ -916,9 +910,7 @@ def test_cuda_layout_step_matches_cpu(kernel, layout, bf16):
     assert abs(l_card - l_cpu) <= (1e-2 if bf16 else 1e-4) * abs(l_cpu)
     _hold_grads(card, cpu, 5e-2 if bf16 else 2e-3, norm=bf16)
     L = LAYOUT_NET['n_layers']
-    n = L if kernel == 'generic' else 0
-    per_layer = {'bucketed': 1, 'ell': 2, 'csr': 3}[layout]
-    assert counts == _launches(n, n, rows=per_layer * L + 1 + 2)
+    assert counts == _launches(L, L, rows=3 * L + 1 + 2)
 
 
 @pytest.mark.cuda
@@ -956,73 +948,6 @@ def test_cuda_remat_step_matches_plain_step():
     assert counts[1]['csr_dmsg'] == L
     assert counts[0]['csr_edge_message'] == L
     assert counts[1]['csr_edge_message'] == 2 * L
-
-
-@pytest.mark.cuda
-def test_cuda_bucketed_trainer_launches_no_kernel():
-    """PipelineConfig(bucket_by_degree=True) with kernel='auto' on the card:
-    two epochs, every batch bucketed at the caps fit derives, finite falling
-    loss, none of K1 to K4 launched; the row sum per train step once a
-    layer (the sender gather), once for the readout and twice for the atom
-    and bond lookups, and once per evaluation batch (the readout)."""
-    from pna_tpu_torch.data.molecules import ZincDataset
-    from pna_tpu_torch.nn.nets import PNANetMolecules
-    from pna_tpu_torch.train.realworld import PipelineConfig, RealworldTrainer
-    _need_card()
-    ds = ZincDataset.synthetic(n_train=48, n_val=16, n_test=16, seed=2)
-    trainer = RealworldTrainer(
-        _zinc_net(ds, 'cuda', kernel='auto'), PNANetMolecules.loss,
-        PipelineConfig(bucket_by_degree=True, epochs=2, batch_size=16,
-                       init_lr=5e-3),
-        forward_args=lambda g: (g, g.node_feats.squeeze(-1),
-                                g.edge_feats.squeeze(-1)), device='cuda')
-    fk.reset_launch_counts()
-    _, _, hist = trainer.fit(ds, log_fn=lambda s: None)
-    torch.cuda.synchronize()
-    steps = sum(h['train_steps'] for h in hist)
-    evals = 2 * (-(-len(ds.val) // 16) + -(-len(ds.test) // 16))
-    assert fk.launch_counts() == _launches(
-        rows=(LAYOUT_NET['n_layers'] + 1 + 2) * steps + evals)
-    assert trainer.bucket_caps is not None
-    losses = [h['train_loss'] for h in hist]
-    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
-
-
-@pytest.mark.cuda
-def test_cuda_hiv_ell_step_matches_cpu():
-    """PNANetHIV on an ELL batch (the bank's ELL path) on the card against
-    the CPU and against the CSR batch on the card; no K1 to K4 launch."""
-    from pna_tpu_torch.data.hiv import HIVDataset
-    from pna_tpu_torch.data.molecules import collate_records
-    from pna_tpu_torch.nn.nets import PNANetHIV
-    _need_card()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    ds = HIVDataset.synthetic(n_train=24, n_val=1, n_test=1, seed=2)
-    ell, y = collate_records(ds.train, with_ell=True)
-    csr, _ = collate_records(ds.train)
-    kw = dict(hidden_dim=16, out_dim=16, n_layers=2,
-              aggregators=LAYOUT_NET['aggregators'],
-              scalers=LAYOUT_NET['scalers'], avg_d=ds.avg_d(), seed=3)
-    state = PNANetHIV(**kw, device='cpu').state_dict()
-    models, losses = {}, {}
-    for where, graph, dev in (('cpu', ell, 'cpu'), ('card', ell, 'cuda'),
-                              ('csr', csr, 'cuda')):
-        m = PNANetHIV(**kw, device=dev)
-        m.load_state_dict(state)
-        m.train()
-        g = graph.to(dev)
-        fk.reset_launch_counts()
-        loss = PNANetHIV.loss(m(g, g.node_feats), y.to(dev), g.graph_mask)
-        loss.backward()
-        if where == 'card':
-            torch.cuda.synchronize()
-            # the sender gather and the ELL table's gather a layer, the
-            # mean readout's sum and count, the AtomEncoder's 9 lookups
-            assert fk.launch_counts() == _launches(rows=2 * 2 + 2 + 9)
-        models[where], losses[where] = m, float(loss.detach())
-    assert abs(losses['card'] - losses['cpu']) <= 1e-4 * abs(losses['cpu'])
-    assert abs(losses['card'] - losses['csr']) <= 1e-4 * abs(losses['csr'])
-    _hold_grads(models['card'], models['cpu'], 2e-3)
 
 
 @pytest.fixture
@@ -1485,8 +1410,7 @@ def test_cuda_edge_message_grads_are_the_gathers_row_sums(f):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ['csr', 'csr_fused', 'generic', 'ell',
-                                    'bucketed'])
+@pytest.mark.parametrize("kernel", ['csr', 'csr_fused', 'generic'])
 def test_cuda_edge_message_launches_once_a_layer_on_csr(kernel):
     """One training step of a 4-layer ZINC net on the card launches the
     edge messages once a layer on 'csr' and never on the other backends."""
@@ -1494,9 +1418,7 @@ def test_cuda_edge_message_launches_once_a_layer_on_csr(kernel):
     from pna_tpu_torch.train.step import loss_and_grads
     _need_card()
     ds = ZincDataset.synthetic(n_train=24, n_val=1, n_test=1, seed=2)
-    kw = {'ell': dict(with_ell=True),
-          'bucketed': dict(bucket_by_degree=True)}.get(kernel, {})
-    graph, labels = collate_records(ds.train, **kw)
+    graph, labels = collate_records(ds.train)
     net = _zinc_net(ds, 'cuda', kernel=kernel, n_layers=4)
     fk.reset_launch_counts()
     loss = float(loss_and_grads(net, graph.to('cuda'), labels.cuda()))

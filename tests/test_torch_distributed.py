@@ -3,8 +3,10 @@
 * The oracle: ``DistributedPNANet`` without groups on ``full_graph`` against
   the JAX net on its ``full_graph``, on the same weights (``from_jax``), on
   the generic, csr and csr_fused backends (the kernels' plain versions on
-  the CPU) and on a bucketized one-part partition, with the graph readout
-  and with the node-level head and edge features.  Loss rtol 1e-5, every
+  the CPU), with the graph readout and with the node-level head and edge
+  features; and the JAX net on its bucketed backend over a bucketized
+  one-part partition against the port's csr on the same graph (the port has
+  no bucketed layout).  Loss rtol 1e-5, every
   gradient within 2e-3 of its scale (its largest entry, but at least 1e-3
   of the model's largest gradient entry, as the other net tests hold them).
 * The step: four spawned gloo ranks run one SGD (1e-2) step of the
@@ -13,8 +15,8 @@
   (``tests/test_distributed_net.py``): loss rtol 1e-4; parameters rtol
   2e-3, atol 2e-4; batch-norm statistics rtol 1e-4, atol 1e-5.  Cases:
   ``d_graph`` 4 on generic, with edge features, with ``overlap`` (with and
-  without edge features), on csr and csr_fused (sorted partition) and on
-  bucketed (bucketized partition); and a 2 x 2 ``hybrid_mesh`` (data x
+  without edge features), on csr and csr_fused (sorted partition); and a
+  2 x 2 ``hybrid_mesh`` (data x
   graph, batch norm off, as the JAX data-parallel test runs it).  As in
   the JAX tests, duplicate (sender, receiver) pairs are dropped: the
   partition reorders edges, and max/min tie-breaking would then differ.
@@ -35,7 +37,7 @@ from pna_tpu.parallel.distributed_net import init_net as jinit_net
 from pna_tpu.parallel import partition as jpartition
 from pna_tpu_torch.parallel import partition as tpartition
 from pna_tpu_torch.parallel.distributed_net import (DistributedPNANet,
-                                                    full_graph, part_tables)
+                                                    full_graph)
 from pna_tpu_torch.weights import from_jax
 
 from tests import _torch_dist_ranks as ranks
@@ -62,13 +64,20 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _edges():
+def _edges(every_node_receives=False):
+    """The power-law graph's distinct edges; with ``every_node_receives``,
+    an edge from node i + 1 into every node i without in-edges."""
     send, recv = jpartition.powerlaw_graph(NUM_NODES, NUM_EDGES, seed=2)
+    if every_node_receives:
+        lone = np.nonzero(np.bincount(recv, minlength=NUM_NODES) == 0)[0]
+        send = np.concatenate([send, (lone + 1) % NUM_NODES])
+        recv = np.concatenate([recv, lone])
     pairs = np.unique(send * NUM_NODES + recv)
     return pairs // NUM_NODES, pairs % NUM_NODES
 
 
 def _jpart(send, recv, d_graph, layout=None):
+    """The JAX partition in ``layout``: None, 'sorted' or 'bucketed'."""
     part = jpartition.partition_edges(send, recv, NUM_NODES, d_graph)
     if layout == 'bucketed':
         part = jpartition.bucketize_partition(part)
@@ -119,18 +128,20 @@ def _grad_scale_errors(got, want):
 def test_oracle_matches_jax_oracle(kernel, node_level):
     """No groups: the port's single-device net on the same graph and
     weights as the JAX oracle: loss and every gradient.  The node-level
-    cases carry edge features.  The bucketed case runs both nets on one
-    part of a bucketized partition (the whole graph in the bucketed layout),
-    the JAX net on its bucketed backend: the generic path sums the
-    variance of a one-edge node as E[x^2] - E[x]^2, whose rounding decides
-    the clamp's gradient there."""
-    send, recv = _edges()
+    cases carry edge features.  The bucketed case runs the JAX net on one
+    part of a bucketized partition (the whole graph in the bucketed layout)
+    on its bucketed backend, and the port's on its one-part graph on
+    ``csr``, whose sketch sums the variance of a one-edge node as the
+    bucketed one does, E[x^2] - E[x]^2 (the rounding decides the clamp's
+    gradient there): features, targets and mask reach the port's nodes
+    through the partitions' node orders.  The JAX bucketed path defines std
+    as 0 on a node without in-edges, where its other paths and every port
+    backend give sqrt(EPS), so that case gives every node an in-edge."""
+    send, recv = _edges(every_node_receives=kernel == 'bucketed')
     d_graph = 1 if kernel == 'bucketed' else 4
     layout = 'bucketed' if kernel == 'bucketed' else None
     part_j = _jpart(send, recv, d_graph, layout)
     part_t = tpartition.partition_edges(send, recv, NUM_NODES, d_graph)
-    if kernel == 'bucketed':
-        part_t = tpartition.bucketize_partition(part_t)
     ef = (np.random.RandomState(3).randn(len(send), FE).astype(np.float32)
           if node_level else None)
     efeats = part_j.scatter_edge_features(ef) if node_level else None
@@ -168,34 +179,44 @@ def test_oracle_matches_jax_oracle(kernel, node_level):
         grad_fn = jax.jit(grad_fn)
     l_j, g_jax = grad_fn(params)
 
+    port_kernel = 'csr' if kernel == 'bucketed' else kernel
     net = DistributedPNANet(F, device='cpu', edge_dim=FE if node_level else 0,
                             **_net_kw(node_level=node_level,
                                       edge_features=node_level,
-                                      kernel=kernel))
+                                      kernel=port_kernel))
     net.load_state_dict(from_jax(_np(params), _np(stats)))
     net.train()
+    g_t = full_graph(part_t, send, recv, efeats=ef,
+                     sort_edges=port_kernel != 'generic')
+    e_t = g_t.edge_feats
+    feats_t, targets_t, mask_t = feats, targets, mask
     if kernel == 'bucketed':
-        tab = part_tables(part_t, net, 0, 'cpu',
-                          part_t.scatter_edge_features(ef))
-        g_t, e_t = tab.graph, tab.e
-    else:
-        g_t = full_graph(part_t, send, recv, efeats=ef,
-                         sort_edges=kernel != 'generic')
-        e_t = g_t.edge_feats
-    pred = net(g_t, torch.from_numpy(feats), e=e_t)
-    y, m = torch.from_numpy(targets), torch.from_numpy(mask)
+        # the port's row of each node from the JAX bucketized row
+        pos_t, pos_j = part_t._positions(), part_j._positions()
+        n_pad = part_t.num_parts * part_t.nodes_per_part
+        feats_t = np.zeros((n_pad, F), np.float32)
+        targets_t = np.zeros(n_pad, np.float32)
+        feats_t[pos_t], targets_t[pos_t] = feats[pos_j], targets[pos_j]
+        mask_t = part_t.node_mask.reshape(-1)
+    pred = net(g_t, torch.from_numpy(feats_t), e=e_t)
+    y, m = torch.from_numpy(targets_t), torch.from_numpy(mask_t)
     if node_level:
         loss = (((pred - y) ** 2) * m).sum() / m.sum()
     else:
         loss = (pred - 0.7) ** 2
     loss.backward()
-    np.testing.assert_allclose(loss.item(), float(l_j), rtol=1e-5)
+    note = (" [graph with an in-edge into every node: the JAX bucketed "
+            "path sets std to 0 on a node without in-edges, its other "
+            "paths and the port sqrt(EPS)]" if kernel == 'bucketed' else "")
+    np.testing.assert_allclose(loss.item(), float(l_j), rtol=1e-5,
+                               err_msg=note)
     want = {k: v.numpy() for k, v in from_jax(_np(g_jax)).items()}
     got = {k: p.grad.numpy() for k, p in net.named_parameters()}
     assert set(got) == set(want)
     errs = _grad_scale_errors(got, want)
-    assert max(errs.values()) <= 2e-3, sorted(errs.items(),
-                                              key=lambda kv: -kv[1])[:4]
+    assert max(errs.values()) <= 2e-3, (sorted(errs.items(),
+                                               key=lambda kv: -kv[1])[:4],
+                                        note)
 
 
 # -- the step over four spawned ranks ----------------------------------------
@@ -229,7 +250,6 @@ CASES = {
     'overlap_edge_features': dict(overlap=True, edge_features=True),
     'csr': dict(kernel='csr', layout='sorted'),
     'csr_fused': dict(kernel='csr_fused', layout='sorted'),
-    'bucketed': dict(kernel='bucketed', layout='bucketed'),
     'data_2x2': dict(d_data=2, batch_norm=False),
 }
 
@@ -286,7 +306,7 @@ def _aggregate_case():
 
 
 def test_distributed_step_matches_jax_oracle(tmp_path):
-    """The eight step cases; the halo exchange under
+    """The seven step cases; the halo exchange under
     ``make_distributed_aggregate`` against the JAX single-device bank
     (``tests/test_partition.py``'s tolerance, 2e-4); and
     ``dryrun_multichip(4)`` on its 2 x 2 mesh (every configuration's loss
@@ -300,7 +320,7 @@ def test_distributed_step_matches_jax_oracle(tmp_path):
                           agg_case)
     results = [r for r, _, _ in out]
     dry = [d for _, _, d in out]
-    assert set(dry[0]) == {'bucketed', 'generic', 'csr', 'csr_fused'}
+    assert set(dry[0]) == {'generic', 'csr', 'csr_fused'}
     for d in dry[1:]:
         for k, v in d.items():
             np.testing.assert_allclose(v, dry[0][k], rtol=1e-6)

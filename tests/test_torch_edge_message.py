@@ -201,16 +201,14 @@ def test_csr_layer_matches_the_edge_form(monkeypatch, edge_features,
 
 
 @pytest.mark.parametrize("kernel,calls", [
-    ('csr', 1), ('csr_fused', 0), ('generic', 0), ('ell', 0),
-    ('bucketed', 0)])
+    ('csr', 1), ('csr_fused', 0), ('generic', 0)])
 def test_message_build_runs_on_csr_alone(monkeypatch, kernel, calls):
     rng = np.random.RandomState(4)
     graphs = [dict(node_feats=rng.randn(n, 2).astype(np.float32),
                    senders=rng.randint(0, n, 2 * n).astype(np.int32),
                    receivers=rng.randint(0, n, 2 * n).astype(np.int32))
               for n in (5, 9, 7)]
-    graph = batch_graphs(graphs, with_ell=kernel == 'ell',
-                         bucket_by_degree=kernel == 'bucketed')
+    graph = batch_graphs(graphs)
     seen = []
     real = csr_bank.csr_messages
 

@@ -182,8 +182,9 @@ def test_bf16_layer_matches_jax_bf16(kernel):
 # were still to port (they raised NotImplementedError then)
 @pytest.mark.parametrize("kw,err,match", [
     (dict(kernel='auto', tp_group='model'), TypeError, "process group"),
-    (dict(kernel='bucketed', tp_group='model'), TypeError, "process group"),
-    (dict(kernel='ell', tp_group='model'), TypeError, "process group"),
+    (dict(kernel='bucketed', tp_group='model'), ValueError,
+     "unknown kernel"),
+    (dict(kernel='ell', tp_group='model'), ValueError, "unknown kernel"),
     (dict(kernel='generic', tp_group='model'), TypeError, "process group"),
     (dict(kernel='pallas_fused'), ValueError, "'csr_fused'"),
     (dict(kernel='pallas'), ValueError, "'csr'"),
@@ -194,9 +195,10 @@ def test_bf16_layer_matches_jax_bf16(kernel):
     + ['NotImplementedError'] * 2)])
 def test_unported_options_raise(kw, err, match):
     """Options the port does not take raise, on every backend: the JAX
-    names of the kernel backends raise naming the port's, float16 says that
-    nothing runs it, and tower TP takes a process group, not a mesh axis
-    name."""
+    names of the kernel backends raise naming the port's, the JAX bucketed
+    and ELL backends, which the port does not have, raise as unknown,
+    float16 says that nothing runs it, and tower TP takes a process group,
+    not a mesh axis name."""
     with pytest.raises(err, match=match):
         PNALayerFused(D, D, AGGS, SCALERS, AVG_D, device='cpu', **kw)
 
@@ -212,3 +214,122 @@ def test_distributed_arguments_raise():
         tl(tg, h, sender_table=h[:, 1:])
     with pytest.raises(ValueError, match="overlap takes 7"):
         tl(tg, h, overlap=(h,))
+
+
+# the overlap path on one part of a partitioned graph
+OV_NODES, OV_EDGES, OV_PARTS = 60, 420, 4
+
+
+def _overlap_inputs(p, edge_features):
+    """Part ``p`` of a 4-way ``partition_edges`` of a power-law graph (the
+    port's tables, element for element the JAX package's:
+    tests/test_torch_partition.py), split by ``split_edges``: its graph,
+    its rows of the split tables, and random local node rows, halo rows and
+    edge rows (``e``, the part's edge features; its local and boundary
+    rows are taken by ``idx_local``/``idx_bound``)."""
+    from pna_tpu_torch.parallel.distributed_net import _local_graph
+    from pna_tpu_torch.parallel.partition import (partition_edges,
+                                                  powerlaw_graph,
+                                                  split_edges)
+    send, recv = powerlaw_graph(OV_NODES, OV_EDGES, seed=5)
+    part = partition_edges(send, recv, OV_NODES, OV_PARTS)
+    sp = split_edges(part)
+    rows = {f: np.ascontiguousarray(getattr(sp, f)[p]) for f in (
+        'senders_local', 'receivers_local', 'mask_local', 'senders_bound',
+        'receivers_bound', 'mask_bound', 'idx_local', 'idx_bound')}
+    assert rows['mask_bound'].any() and rows['mask_local'].any()
+    nl = part.nodes_per_part
+    tables = [np.ascontiguousarray(a[p]) for a in (
+        part.senders_local, part.receivers_local, part.edge_mask,
+        part.node_mask)]
+    rng = np.random.RandomState(10 + p)
+    h = rng.randn(nl, D).astype(np.float32)
+    halo = rng.randn(OV_PARTS * part.halo_size, D).astype(np.float32)
+    e = (rng.randn(part.edges_per_part, FE).astype(np.float32)
+         if edge_features else None)
+    tg = _local_graph(nl, *(torch.from_numpy(a) for a in tables))
+    return tg, tables, rows, h, halo, e
+
+
+@pytest.mark.parametrize("edge_features", [False, True])
+@pytest.mark.parametrize("part", range(OV_PARTS))
+def test_overlap_layer_matches_jax_overlap(part, edge_features):
+    """The layer alone on its ``overlap`` path, the local and the boundary
+    edges of one part aggregated into one moment sketch, against the JAX
+    layer's overlap path on the same weights and split tables: output, loss
+    = sum(out^2), every parameter gradient, the gradients of h, of the halo
+    rows and of the edge rows, and the new batch-norm statistics, at the
+    float32 tolerances of the module docstring, but for the parameter
+    gradients: without graph norm (the distributed net's layers have none)
+    the posttrans bias meets the batch norm directly and its gradient is 0
+    but for float noise, so they are held as tests/test_torch_distributed.py
+    holds the nets' on this path, each within 2e-3 of its scale (its
+    largest entry, but at least 1e-3 of the layer's largest entry)."""
+    from pna_tpu.parallel.distributed_net import _local_graph as j_local
+    tg, tables, rows, h, halo, e = _overlap_inputs(part, edge_features)
+    jg = j_local(tg.n_node_pad, *(jnp.asarray(a) for a in tables))
+    idx = ('senders_local', 'receivers_local', 'mask_local',
+           'senders_bound', 'receivers_bound', 'mask_bound')
+    jl = JPNALayerFused(out_dim=D, aggregators=AGGS, scalers=SCALERS,
+                        avg_d=AVG_D, towers=T, batch_norm=True,
+                        residual=True, edge_features=edge_features)
+    var = jax.tree_util.tree_map(np.asarray, jl.init(
+        {'params': jax.random.PRNGKey(0)}, jg, jnp.asarray(h),
+        None if e is None else jnp.asarray(e), train=False))
+
+    def jloss(p, h, halo, e):
+        ov = (halo,) + tuple(jnp.asarray(rows[f]) for f in idx)
+        if edge_features:
+            ov = ov + (e[rows['idx_local']], e[rows['idx_bound']])
+        out, mut = jl.apply({'params': p, 'batch_stats': var['batch_stats']},
+                            jg, h, e, train=True, overlap=ov,
+                            mutable=['batch_stats'])
+        return jnp.sum(out * out), (out, mut['batch_stats'])
+
+    (l_j, (out_j, stats_j)), grads_j = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2, 3) if edge_features else (0, 1, 2),
+        has_aux=True)(var['params'], jnp.asarray(h), jnp.asarray(halo),
+                      None if e is None else jnp.asarray(e))
+
+    tl = PNALayerFused(D, D, AGGS, SCALERS, AVG_D, towers=T,
+                       batch_norm=True, residual=True,
+                       edge_features=edge_features, edge_dim=FE,
+                       device='cpu')
+    tl.load_state_dict(from_jax(var['params'], var['batch_stats']))
+    tl.train()
+    ht, halo_t = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (h, halo))
+    ov = (halo_t,) + tuple(torch.from_numpy(rows[f]).long()
+                           if 'mask' not in f else torch.from_numpy(rows[f])
+                           for f in idx)
+    et = None
+    if edge_features:
+        et = torch.from_numpy(e).requires_grad_(True)
+        ov = ov + tuple(et[torch.from_numpy(rows[f]).long()]
+                        for f in ('idx_local', 'idx_bound'))
+    out_t = tl(tg, ht, et, overlap=ov)
+    l_t = torch.sum(out_t * out_t)
+    l_t.backward()
+
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(l_t.detach()), float(l_j), rtol=1e-5)
+    want = {k: w.numpy() for k, w in from_jax(jax.tree_util.tree_map(
+        np.asarray, grads_j[0])).items()}
+    got = {k: p.grad.numpy() for k, p in tl.named_parameters()}
+    assert set(want) == set(got)
+    top = max(float(np.abs(w).max()) for w in want.values())
+    for k, w in want.items():
+        err = float(np.abs(got[k] - w).max()) / max(float(np.abs(w).max()),
+                                                     1e-3 * top)
+        assert err <= 2e-3, (k, err)
+    pairs = [('h', ht.grad.numpy(), np.asarray(grads_j[1])),
+             ('halo', halo_t.grad.numpy(), np.asarray(grads_j[2]))]
+    if edge_features:
+        pairs.append(('e', et.grad.numpy(), np.asarray(grads_j[3])))
+    for k, g, w in pairs:
+        np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-5, err_msg=k)
+    stats = from_jax({}, jax.tree_util.tree_map(np.asarray, stats_j))
+    for k, w in stats.items():
+        np.testing.assert_allclose(tl.state_dict()[k].numpy(), w.numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)

@@ -210,7 +210,7 @@ def test_gat_config_and_problem():
     assert 0.2 < labels[part.node_mask].mean() < 0.8
     # the csr layout whatever the kernel named
     assert lg.build_problem(lg.ppi_gat_config(
-        num_nodes=200, num_edges=1500, d_graph=1, kernel='bucketed'),
+        num_nodes=200, num_edges=1500, d_graph=1, kernel='generic'),
         'cpu')[-1] == 'csr'
     with pytest.raises(ValueError):
         lg.build_problem(lg.LargeGraphConfig(model='gcn'), 'cpu')

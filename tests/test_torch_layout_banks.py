@@ -1,26 +1,28 @@
-"""The aggregation banks over the ELL and degree-bucketed layouts against
-pna_tpu on the CPU, on the same messages and cotangents:
+"""The port's segment aggregators, sparse bank and CSR bank on the
+receiver-sorted batch against pna_tpu's ELL aggregators and banks on its ELL
+batch of the same graphs (the same edges in the same order), on the CPU, on
+the same messages and cotangents:
 
-* every aggregator of ``ops/ell.py`` and the ELL path of
-  ``nn/sparse.py::aggregate_bank``;
-* ``ops/fused_vjp.py``'s ``make_raw_bank`` and ``make_fused_bank``;
-* ``ops/bucketed.py``'s ``raw_bank`` over all of ``SUPPORTED``,
-  ``moment_stats`` with ``derive_aggregator``, ``fused_raw_bank`` and
-  ``expand_to_edges``.
+* every aggregator of ``pna_tpu/ops/ell.py`` against the port's segment
+  aggregator (``ops/aggregators.py``), and the JAX bank's ELL path of
+  ``nn/sparse.py::aggregate_bank`` against the port's;
+* ``pna_tpu/ops/fused_vjp.py``'s ``make_raw_bank`` against
+  ``csr_bank.csr_raw_bank`` (K1/K2's plain versions here), and its
+  ``make_fused_bank`` against the port's ``aggregate_bank``.
 
-The messages are multiples of 1/2 drawn from a few values, so that maxima
-and minima tie exactly and sums and sums of squares are exact; the batch
-has nodes of degree 0 in the degree-0 class and in wider classes (dummy
-slots) and nodes below their class width.  Tolerances: outputs rtol 1e-5,
-atol 1e-5; gradients rtol 2e-4, atol 2e-5 (float32 sums in other orders).
+The port has no ELL layout (nor the JAX package's degree-bucketed one).  The
+messages are multiples of 1/2 drawn from a few values, so that maxima and
+minima tie exactly and sums and sums of squares are exact; the batch has
+nodes of degree 0.  Tolerances: outputs rtol 1e-5, atol 1e-5; gradients
+rtol 2e-4, atol 2e-5 (float32 sums in other orders).
 
 One exception, a property of the function both packages compute: at a node
 of degree 2 the odd central moments are identically 0, and the root
 sign(m) (|m| + EPS)^(1/n) has slope (1/n) EPS^(1/n - 1) there (718 for
 n = 3, 2000 for n = 5), so the output of such a node and the gradient on its
 edges are float32 rounding noise times that slope, on both sides (up to
-6e-5 and 1e-3 here).  The ELL checks of moment3 and moment5 compare the
-outputs of every other node and the gradients on their edges."""
+6e-5 and 1e-3 here).  The checks of moment3 and moment5 compare the outputs
+of every other node and the gradients on their edges."""
 
 import numpy as np
 import pytest
@@ -31,14 +33,12 @@ import jax.numpy as jnp
 
 from pna_tpu import graph as jgraph
 from pna_tpu.nn.sparse import aggregate_bank as j_aggregate_bank
-from pna_tpu.ops import bucketed as jb
 from pna_tpu.ops import ell as jell
 from pna_tpu.ops import fused_vjp as jfv
 from pna_tpu_torch import graph as tgraph
 from pna_tpu_torch.nn.sparse import aggregate_bank
-from pna_tpu_torch.ops import bucketed as tb
-from pna_tpu_torch.ops import ell as tell
-from pna_tpu_torch.ops import fused_vjp as tfv
+from pna_tpu_torch.ops import csr_bank, scalers
+from pna_tpu_torch.ops.aggregators import SEGMENT_AGGREGATORS, SegmentCtx
 
 F = 6
 OUT = dict(rtol=1e-5, atol=1e-5)
@@ -47,7 +47,6 @@ AVG_D = {'lin': 2.3, 'log': 1.1}
 FUSED_AGGS = ('mean', 'sum', 'max', 'min', 'var', 'std')
 SCALERS = ('identity', 'amplification', 'attenuation', 'linear',
            'inverse_linear')
-CAPS = {0: 8, 2: 24, 5: 16, 11: 8}
 
 
 def _graphs(seed=0):
@@ -100,27 +99,30 @@ def _not_degree_two(tg):
 
 
 def _ell_graphs():
+    """The port's CSR batch and the JAX ELL batch of the same graphs."""
     graphs = _graphs()
-    tg = tgraph.batch_graphs(graphs, with_ell=True)
+    tg = tgraph.batch_graphs(graphs)
     jg = jgraph.batch_graphs(graphs)
+    assert jg.nbr_edge_ids is not None
+    np.testing.assert_array_equal(tg.receivers.numpy(), jg.receivers)
     return tg, jg
 
 
-@pytest.mark.parametrize("name", sorted(tell.ELL_AGGREGATORS))
+@pytest.mark.parametrize("name", sorted(jell.ELL_AGGREGATORS))
 def test_ell_aggregator_matches_jax(name):
+    """The JAX ELL aggregator against the port's segment aggregator."""
     tg, jg = _ell_graphs()
     rng = np.random.RandomState(2)
     msg = _messages(tg.n_edge_pad)
     msg[::3] = rng.randn(len(msg[::3]), F)        # continuous values too
     self_msg = rng.randn(tg.n_node_pad, F).astype(np.float32)
-    out_deg = tg.out_degrees()
     cot = rng.randn(tg.n_node_pad, F).astype(np.float32)
 
     def t_fn(x):
-        ctx = tell.EllCtx.create(x, tg.nbr_edge_ids, tg.nbr_mask,
-                                 self_msg=torch.from_numpy(self_msg),
-                                 senders=tg.senders, out_deg=out_deg)
-        return tell.ELL_AGGREGATORS[name](ctx)
+        ctx = SegmentCtx.create(x, tg.receivers, tg.n_node_pad,
+                                mask=tg.edge_mask, senders=tg.senders,
+                                self_msg=torch.from_numpy(self_msg))
+        return SEGMENT_AGGREGATORS[name](ctx)
 
     def j_fn(x):
         ctx = jell.EllCtx.create(x, jg.nbr_edge_ids, jg.nbr_mask,
@@ -138,8 +140,9 @@ def test_ell_aggregator_matches_jax(name):
     ('identity', 'sum', 'var', 'softmax', 'softmin', 'normalised_mean'),
     ('moment3', 'moment4', 'moment5')])
 def test_ell_aggregate_bank_matches_jax(aggs):
-    """aggregate_bank on an ELL batch (every aggregator through the ELL
-    context, the scalers on its degree) against the JAX bank."""
+    """The port's aggregate_bank on its CSR batch (the segment form on the
+    CPU, the scalers on the in-degree) against the JAX bank on its ELL
+    batch (every aggregator through the ELL context)."""
     tg, jg = _ell_graphs()
     rng = np.random.RandomState(3)
     msg = _messages(tg.n_edge_pad)
@@ -157,17 +160,18 @@ def test_ell_aggregate_bank_matches_jax(aggs):
 
 @pytest.mark.parametrize("dtype", ['float32', 'bfloat16'])
 def test_ell_raw_bank_matches_jax(dtype):
-    """make_raw_bank: float32 output from float32 or bfloat16 messages; the
-    gradient in the messages' dtype (bfloat16 compared after widening)."""
+    """The JAX make_raw_bank against csr_raw_bank: float32 output from
+    float32 or bfloat16 messages; the gradient in the messages' dtype
+    (bfloat16 compared after widening)."""
     tg, jg = _ell_graphs()
     msg = _messages(tg.n_edge_pad, seed=4)
     cot = np.random.RandomState(5).randn(
         tg.n_node_pad, len(FUSED_AGGS), F).astype(np.float32)
-    t_raw = tfv.make_raw_bank(tg.receivers, tg.edge_mask)
+    layout = csr_bank.layout_from_graph(tg)
     j_raw = jfv.make_raw_bank(jg.receivers, jg.edge_mask)
     tdt = getattr(torch, dtype)
     x = torch.from_numpy(msg).to(tdt).requires_grad_(True)
-    out = t_raw(x, tg.nbr_edge_ids, tg.nbr_mask, FUSED_AGGS)
+    out = csr_bank.csr_raw_bank(x, layout, FUSED_AGGS)
     (out * torch.from_numpy(cot)).sum().backward()
     j_out, vjp = jax.vjp(
         lambda m: j_raw(m, jg.nbr_edge_ids, jg.nbr_mask, FUSED_AGGS),
@@ -177,131 +181,26 @@ def test_ell_raw_bank_matches_jax(dtype):
     _check(out, x.grad.float(), j_out, np.asarray(j_grad, np.float32))
     with torch.no_grad():      # the forward without tie counts
         np.testing.assert_array_equal(
-            t_raw(x, tg.nbr_edge_ids, tg.nbr_mask, FUSED_AGGS).numpy(),
+            csr_bank.csr_raw_bank(x, layout, FUSED_AGGS).numpy(),
             out.detach().numpy())
 
 
 def test_ell_fused_bank_matches_jax():
+    """The JAX make_fused_bank ([N, S, A, F]) against the port's
+    aggregate_bank ([N, S*A*F], the same order)."""
     tg, jg = _ell_graphs()
     msg = _messages(tg.n_edge_pad, seed=6)
-    deg = tg.nbr_mask.sum(dim=1).float()
+    deg = tg.in_degrees()
     cot = np.random.RandomState(7).randn(
         tg.n_node_pad, len(SCALERS), len(FUSED_AGGS), F).astype(np.float32)
-    t_fused = tfv.make_fused_bank(tg.receivers, tg.edge_mask)
     j_fused = jfv.make_fused_bank(jg.receivers, jg.edge_mask)
     _check(*_grad_pair(
-        lambda x: t_fused(x, tg.nbr_edge_ids, tg.nbr_mask, deg, FUSED_AGGS,
-                          SCALERS, AVG_D),
+        lambda x: aggregate_bank(tg, x, FUSED_AGGS, SCALERS, AVG_D).reshape(
+            tg.n_node_pad, len(SCALERS), len(FUSED_AGGS), F),
         lambda x: j_fused(x, jg.nbr_edge_ids, jg.nbr_mask,
                           jnp.asarray(deg.numpy()), FUSED_AGGS, SCALERS,
                           AVG_D),
         msg, cot))
-    assert tfv.supports(FUSED_AGGS, SCALERS)
-    assert not tfv.supports(('mean', 'identity'), SCALERS)
-
-
-def _bucketed_graphs(caps=CAPS):
-    graphs = _graphs(seed=8)
-    tg = tgraph.batch_graphs(graphs, bucket_by_degree=True, bucket_caps=caps)
-    jg = jgraph.batch_graphs(graphs, bucket_by_degree=True, bucket_caps=caps,
-                             with_ell=False)
-    in_deg = tg.in_deg.numpy()
-    off = 0
-    for d, c in tg.bucket_spec:       # dummy slots: degree below the width
-        if d:
-            assert (in_deg[off:off + c] < d).any()
-        off += c
-    return tg, jg
-
-
-@pytest.mark.parametrize("with_in_deg", [True, False])
-def test_bucketed_raw_bank_matches_jax(with_in_deg):
-    """raw_bank over every aggregator of SUPPORTED; without ``in_deg`` the
-    class width is every node's degree (exact classes)."""
-    caps = CAPS if with_in_deg else None
-    if caps is None:
-        graphs = _graphs(seed=8)
-        tg = tgraph.batch_graphs(graphs, bucket_by_degree=True,
-                                 bucket_max_buckets=8)
-        jg = jgraph.batch_graphs(graphs, bucket_by_degree=True,
-                                 bucket_max_buckets=8, with_ell=False)
-    else:
-        tg, jg = _bucketed_graphs()
-    msg = _messages(tg.n_edge_pad, seed=9)
-    msg[::5] = np.random.RandomState(10).randn(len(msg[::5]), F)
-    aggs = tb.SUPPORTED
-    cot = np.random.RandomState(11).randn(
-        tg.n_node_pad, len(aggs), F).astype(np.float32)
-    t_deg = tg.in_deg if with_in_deg else None
-    j_deg = jg.in_deg if with_in_deg else None
-    _check(*_grad_pair(
-        lambda x: tb.raw_bank(x, tg.bucket_spec, aggs, in_deg=t_deg),
-        lambda x: jb.raw_bank(x, jg.bucket_spec, aggs, in_deg=j_deg),
-        msg, cot))
-
-
-def test_bucketed_moments_match_jax():
-    """moment_stats and derive_aggregator for each aggregator of
-    MOMENT_DERIVABLE (std exactly 0 on the degree-0 class)."""
-    tg, jg = _bucketed_graphs()
-    msg = _messages(tg.n_edge_pad, seed=12)
-    rng = np.random.RandomState(13)
-    for name in tb.MOMENT_DERIVABLE:
-        cot = rng.randn(tg.n_node_pad, F).astype(np.float32)
-        out, grad, j_out, j_grad = _grad_pair(
-            lambda x: tb.derive_aggregator(
-                name, *tb.moment_stats(x, tg.bucket_spec, tg.in_deg)),
-            lambda x: jb.derive_aggregator(
-                name, *jb.moment_stats(x, jg.bucket_spec, jg.in_deg)),
-            msg, cot)
-        _check(out, grad, j_out, j_grad)
-    s, sq, mx, mn, cnt1, d0 = tb.moment_stats(torch.from_numpy(msg),
-                                             tg.bucket_spec, tg.in_deg)
-    assert d0[:8].all() and not d0[8:].any()
-    std = tb.derive_aggregator('std', s, sq, mx, mn, cnt1, d0)
-    assert float(std[:8].abs().max()) == 0.0
-
-
-@pytest.mark.parametrize("dtype", ['float32', 'bfloat16'])
-def test_bucketed_fused_raw_bank_matches_jax(dtype):
-    tg, jg = _bucketed_graphs()
-    msg = _messages(tg.n_edge_pad, seed=14)
-    cot = np.random.RandomState(15).randn(
-        tg.n_node_pad, len(tb.FUSED), F).astype(np.float32)
-    tdt = getattr(torch, dtype)
-    x = torch.from_numpy(msg).to(tdt).requires_grad_(True)
-    out = tb.fused_raw_bank(x, tg.in_deg, tg.bucket_spec, tb.FUSED)
-    (out * torch.from_numpy(cot)).sum().backward()
-    j_out, vjp = jax.vjp(
-        lambda m: jb.fused_raw_bank(m, jg.in_deg, jg.bucket_spec, tb.FUSED),
-        jnp.asarray(msg, getattr(jnp, dtype)))
-    (j_grad,) = vjp(jnp.asarray(cot))
-    assert x.grad.dtype == tdt
-    _check(out, x.grad.float(), j_out, np.asarray(j_grad, np.float32))
-    # the plain bank gives the same function
-    np.testing.assert_allclose(
-        out.detach().numpy(),
-        tb.raw_bank(torch.from_numpy(msg), tg.bucket_spec, tb.FUSED,
-                    in_deg=tg.in_deg).numpy(), **OUT)
-    with torch.no_grad():
-        np.testing.assert_array_equal(
-            tb.fused_raw_bank(x, tg.in_deg, tg.bucket_spec,
-                              tb.FUSED).numpy(), out.detach().numpy())
-
-
-def test_expand_to_edges_matches_receiver_gather():
-    """expand_to_edges is h[receivers] on the real edges and on the dummy
-    self-loops, and its backward sums over each node's slots."""
-    tg, jg = _bucketed_graphs()
-    rng = np.random.RandomState(16)
-    h = rng.randn(tg.n_node_pad, 3).astype(np.float32)
-    cot = rng.randn(tg.n_edge_pad, 3).astype(np.float32)
-    out, grad, j_out, j_grad = _grad_pair(
-        lambda x: tb.expand_to_edges(x, tg.bucket_spec),
-        lambda x: jb.expand_to_edges(x, jg.bucket_spec), h, cot)
-    _check(out, grad, j_out, j_grad)
-    np.testing.assert_array_equal(out.detach().numpy(),
-                                  h[tg.receivers.numpy()])
-    np.testing.assert_array_equal(tb.degrees(tg.bucket_spec),
-                                  jb.degrees(jg.bucket_spec))
-    assert tb.supports(tb.SUPPORTED) and not tb.supports(('identity',))
+    assert csr_bank.supports(FUSED_AGGS)
+    assert set(SCALERS) <= set(scalers.SCALERS)
+    assert not csr_bank.supports(('mean', 'identity'))

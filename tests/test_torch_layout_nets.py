@@ -1,8 +1,12 @@
-"""The nets on the new layouts against pna_tpu on the CPU, on the same
-weights (weights.from_jax): PNANetMolecules with ``kernel='auto'`` on a
-bucketed batch (float32 and bfloat16), ``'ell'`` and ``'generic'`` (with
-``identity``), the bucketed and ELL losses against the CSR loss, and
-PNANetHIV on an ELL batch.
+"""The nets on the receiver-sorted batch against pna_tpu's nets on its
+bucketed and ELL batches of the same records, on the CPU, on the same
+weights (weights.from_jax): PNANetMolecules against the JAX net under
+``kernel='auto'`` on a bucketed batch (float32 and bfloat16), ``'ell'`` and
+``'generic'`` (with ``identity``), the port held on ``csr`` (its plain
+versions here), or ``generic`` where ``identity`` needs it; the port's
+``csr`` loss against the JAX bucketed and ELL losses in eval mode; and
+PNANetHIV against the JAX net on an ELL batch.  The port has no bucketed or
+ELL layout; the outputs compared are per graph, which no node order moves.
 
 Tolerances: float32 loss rtol 1e-4 and every gradient tensor within 2e-3 of
 its scale: its largest entry, but at least 1e-3 of the model's largest
@@ -35,10 +39,12 @@ NET = dict(num_atom_type=28, num_bond_type=4, hidden_dim=16, out_dim=16,
            n_layers=2, scalers=SCALERS, readout_type='sum', towers=2,
            graph_norm=True, batch_norm=True, residual=True, edge_feat=True,
            edge_dim=4)
-# batch layout of each case: the port's collate_records arguments; the JAX
-# batcher builds ELL by default
-LAYOUT = {'auto': dict(bucket_by_degree=True), 'ell': dict(with_ell=True),
+# the JAX batch layout of each case, its collate_records arguments (the
+# JAX batcher builds ELL by default), and the port's backend on its CSR
+# batch
+LAYOUT = {'auto': dict(bucket_by_degree=True), 'ell': dict(),
           'generic': dict()}
+PORT_KERNEL = {'auto': 'csr', 'ell': 'csr', 'generic': 'generic'}
 
 
 def _np(tree):
@@ -46,10 +52,11 @@ def _np(tree):
 
 
 def _batches(layout_kw, n=8, seed=11):
+    """The port's CSR batch and the JAX batch in ``layout_kw``'s layout."""
     recs = tmol.synthetic_zinc(n, seed=seed)
-    tg, tl = tmol.collate_records(recs, **layout_kw)
-    jkw = {k: v for k, v in layout_kw.items() if k != 'with_ell'}
-    jg, jl = jmol.collate_records(jmol.synthetic_zinc(n, seed=seed), **jkw)
+    tg, tl = tmol.collate_records(recs)
+    jg, jl = jmol.collate_records(jmol.synthetic_zinc(n, seed=seed),
+                                  **layout_kw)
     return recs, tg, tl, jg, jl
 
 
@@ -99,7 +106,8 @@ def test_net_on_layout_matches_jax(kernel, cdt):
                 compute_dtype=jnp.bfloat16 if bf16 else None)
     var, l_j, g_j, stats_j = _jax_step(jnet, jg, jl)
     net = PNANetMolecules(**NET, aggregators=aggs, avg_d=avg_d,
-                          kernel=kernel, compute_dtype=cdt, device='cpu')
+                          kernel=PORT_KERNEL[kernel], compute_dtype=cdt,
+                          device='cpu')
     net.load_state_dict(from_jax(var['params'], var['batch_stats']))
     _hold(net, loss_and_grads(net, tg, tl), l_j, g_j, bf16)
     if not bf16:
@@ -110,36 +118,45 @@ def test_net_on_layout_matches_jax(kernel, cdt):
 
 
 def test_auto_bucketed_loss_equals_csr_loss():
-    """The same net and graphs: the bucketed batch under 'auto' and the CSR
-    batch under 'csr' give the same loss (one function, two layouts)."""
+    """The same weights and records: the port's CSR batch under 'csr' gives
+    the JAX net's eval loss on the bucketed batch under 'auto' and on the
+    ELL batch under 'ell' (one function, three layouts)."""
     recs = tmol.synthetic_zinc(8, seed=11)
     avg_d = tmol.ZincDataset(recs, [], []).avg_d()
+    g, y = tmol.collate_records(recs)
     net = PNANetMolecules(**NET, aggregators=AGGS, avg_d=avg_d,
                           device='cpu')
+    var = None
     losses = []
-    for kernel, kw in (('csr', {}), ('auto', LAYOUT['auto']),
-                       ('ell', LAYOUT['ell'])):
-        g, y = tmol.collate_records(recs, **kw)
-        for layer in net.layers:
-            layer.kernel = kernel
-        net.eval()
-        with torch.no_grad():
-            out = net(g, g.node_feats.squeeze(-1), g.edge_feats.squeeze(-1))
-        losses.append(float(PNANetMolecules.loss(out, y, g.graph_mask)))
-    np.testing.assert_allclose(losses[1:], losses[0], rtol=1e-5)
+    for kernel in ('auto', 'ell'):
+        jg, jl = jmol.collate_records(jmol.synthetic_zinc(8, seed=11),
+                                      **LAYOUT[kernel])
+        jnet = JNet(**NET, aggregators=AGGS, avg_d=avg_d, kernel=kernel)
+        args = (jg, jg.node_feats.squeeze(-1), jg.edge_feats.squeeze(-1))
+        if var is None:
+            var = _np(jnet.init({'params': jax.random.PRNGKey(0)}, *args,
+                                train=False))
+        out = jnet.apply(var, *args, train=False)
+        losses.append(float(JNet.loss(out, jnp.asarray(jl), jg.graph_mask)))
+    net.load_state_dict(from_jax(var['params'], var['batch_stats']))
+    net.eval()
+    with torch.no_grad():
+        out = net(g, g.node_feats.squeeze(-1), g.edge_feats.squeeze(-1))
+    loss = float(PNANetMolecules.loss(out, y, g.graph_mask))
+    np.testing.assert_allclose(losses, loss, rtol=1e-5)
 
 
 def test_hiv_net_on_ell_batch_matches_jax():
-    """PNANetHIV on an ELL batch with an isolated atom: the bank takes the
-    ELL path in both packages."""
+    """PNANetHIV with an isolated atom: the JAX bank takes its ELL path,
+    the port's the segment form on the CSR batch."""
     recs = thiv.synthetic_molhiv(24, seed=0)
     r = dict(recs[0])
     r['node_feats'] = np.concatenate([r['node_feats'], r['node_feats'][:1]])
     recs[0] = r
-    tg, tl = tmol.collate_records(recs, with_ell=True)
+    tg, tl = tmol.collate_records(recs)
     jg, jl = jmol.collate_records(recs)
-    assert tg.nbr_edge_ids is not None
-    assert int(tg.nbr_mask.sum(1)[tg.node_mask].min()) == 0
+    assert jg.nbr_edge_ids is not None
+    assert int(tg.in_degrees()[tg.node_mask].min()) == 0
     avg_d = thiv.HIVDataset(recs, [], []).avg_d()
     kw = dict(hidden_dim=16, out_dim=16, n_layers=2, aggregators=AGGS,
               scalers=SCALERS, avg_d=avg_d)

@@ -1,11 +1,12 @@
-"""``PipelineConfig(bucket_by_degree=True)`` against the JAX trainer, which
-buckets by default: RealworldTrainer.fit on the same weights, 2 epochs of 2
-Adam steps on tests/test_torch_pipeline.py's ZINC configuration, the nets
-on ``kernel='auto'`` (the bucketed backend in both packages).  The caps
-``fit`` derives over all splits equal the JAX trainer's, every batch of
-training and evaluation has their one shape, and every epoch's train_loss,
-val_metric, test_metric and lr agree within rtol 2e-4, as the CSR trainer's
-do (float32 sums in other orders through Adam steps)."""
+"""The port's trainer on its CSR batches against the JAX trainer on its
+default degree-bucketed ones: RealworldTrainer.fit on the same weights, 2
+epochs of 2 Adam steps on tests/test_torch_pipeline.py's ZINC
+configuration, the nets on ``kernel='auto'`` (the bucketed backend in the
+JAX package; on the CPU the generic backend in the port, which has no
+bucketed layout).  Every batch of the port's training and evaluation
+carries ``edge_ptr``, and every epoch's train_loss, val_metric, test_metric
+and lr agree within rtol 2e-4, as the CSR trainer's do (float32 sums in
+other orders through Adam steps)."""
 
 import numpy as np
 
@@ -41,21 +42,19 @@ def test_bucketed_trainer_history_matches_jax(monkeypatch):
     model.load_state_dict(from_jax(_np(start['params']),
                                    _np(start['batch_stats'])))
     trainer = trw.RealworldTrainer(
-        model, PNANetMolecules.loss,
-        trw.PipelineConfig(bucket_by_degree=True, **cfg_kw),
+        model, PNANetMolecules.loss, trw.PipelineConfig(**cfg_kw),
         forward_args=_fwd, device='cpu')
-    shapes = set()
+    batches = []
     iterate = tmol.batch_iterator
 
     def recording(*args, **kw):
         for g, y in iterate(*args, **kw):
-            assert g.edge_ptr is None and g.bucket_spec is not None
-            shapes.add((g.n_node_pad, g.n_edge_pad, g.bucket_spec))
+            assert g.edge_ptr is not None
+            batches.append(g.n_node_pad)
             yield g, y
     monkeypatch.setattr(trw, 'batch_iterator', recording)
     _, best, hist = trainer.fit(ds, log_fn=lambda s: None)
-    assert trainer.bucket_caps == caps
-    assert len(shapes) == 1
+    assert len(batches) == 2 * (2 + 1 + 1)    # train, val, test a epoch
     assert len(hist) == len(jhist) == 2
     for h, j in zip(hist, jhist):
         for key in ('train_loss', 'val_metric', 'test_metric', 'lr'):

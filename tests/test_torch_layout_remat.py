@@ -14,14 +14,15 @@ from pna_tpu_torch.data import molecules as tmol
 from pna_tpu_torch.nn.nets import PNANetMolecules
 from pna_tpu_torch.train.step import loss_and_grads
 from pna_tpu_torch.weights import from_jax
-from tests.test_torch_layout_nets import (AGGS, LAYOUT, NET, _batches, _hold,
-                                          _jax_step, _np)
+from tests.test_torch_layout_nets import (AGGS, LAYOUT, NET, PORT_KERNEL,
+                                          _batches, _hold, _jax_step, _np)
 
 
 def test_remat_net_matches_jax_remat():
-    """remat=True in both packages (the JAX layers under nn.remat), on the
-    bucketed batch under 'auto': the parameter tree maps as without remat,
-    and loss and gradients agree."""
+    """remat=True in both packages (the JAX layers under nn.remat), the JAX
+    net on its bucketed batch under 'auto', the port's on its CSR batch
+    under 'csr': the parameter tree maps as without remat, and loss and
+    gradients agree."""
     recs, tg, tl, jg, jl = _batches(LAYOUT['auto'])
     avg_d = tmol.ZincDataset(recs, [], []).avg_d()
     jnet = JNet(**NET, aggregators=AGGS, avg_d=avg_d, kernel='auto',
@@ -33,7 +34,8 @@ def test_remat_net_matches_jax_remat():
     assert (jax.tree_util.tree_structure(var)
             == jax.tree_util.tree_structure(plain))
     net = PNANetMolecules(**NET, aggregators=AGGS, avg_d=avg_d,
-                          kernel='auto', remat=True, device='cpu')
+                          kernel=PORT_KERNEL['auto'], remat=True,
+                          device='cpu')
     net.load_state_dict(from_jax(var['params'], var['batch_stats']))
     _hold(net, loss_and_grads(net, tg, tl), l_j, g_j)
 
@@ -44,10 +46,10 @@ def test_remat_step_repeats_plain_step(kernel):
     the remat net and of the plain net from the same weights and generator
     seed give equal losses, gradients, batch-norm statistics and generator
     states (the recompute redraws the forward's masks, normalises with its
-    shift and leaves the statistics moved once)."""
+    shift and leaves the statistics moved once).  'auto' runs the generic
+    backend on the CPU."""
     recs = tmol.synthetic_zinc(8, seed=11)
-    g, y = tmol.collate_records(
-        recs, **(LAYOUT['auto'] if kernel == 'auto' else {}))
+    g, y = tmol.collate_records(recs)
     avg_d = tmol.ZincDataset(recs, [], []).avg_d()
     nets = [PNANetMolecules(**NET, aggregators=AGGS, avg_d=avg_d,
                             kernel=kernel, dropout=0.2, in_feat_dropout=0.1,

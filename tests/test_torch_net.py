@@ -138,7 +138,7 @@ def test_gru_and_two_layer_mlps_net_matches_jax():
 
 # the ids are the cases' names from when the message cited the ROADMAP item
 @pytest.mark.parametrize("kw,item", [
-    (dict(kernel='ell', compute_dtype=torch.float16), "nor any CLI"),
+    (dict(kernel='generic', compute_dtype=torch.float16), "nor any CLI"),
     (dict(remat=True, compute_dtype=torch.float16), "nor any CLI")],
     ids=["kw0-item 7", "kw1-item 7"])
 def test_unported_net_options_raise(kw, item):

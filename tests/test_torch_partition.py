@@ -3,9 +3,11 @@ and partial statistics against pna_tpu.
 
 * Every array of ``partition_edges`` (with ``reorder='locality'`` and with
   ``None``), ``sort_partition_edges``, ``split_edges``,
-  ``bucketize_partition``, ``_edge_origin_numpy``, ``powerlaw_graph``,
-  ``neighbor_stats_labels`` and ``predict_layout_bytes`` (given the JAX
-  package's work factors) equals the JAX package's, element for element.
+  ``_edge_origin_numpy``, ``powerlaw_graph``, ``neighbor_stats_labels`` and
+  ``predict_layout_bytes``'s CSR and generic estimates (given the JAX
+  package's work factor) equals the JAX package's, element for element.
+  The JAX partition's degree-bucketed fields, a layout the port does not
+  have, are None on every partition compared.
 * The port's C++ library (``pna_tpu_torch/native``, built with g++ here)
   equals its numpy twins.
 * ``ops/partial_stats.py`` against the JAX module within 1e-6 (sketches,
@@ -47,7 +49,12 @@ def _one_torch_thread():
         torch.set_num_threads(n)
 
 def _assert_parts_equal(a, b):
+    """Every field of the JAX ``a`` equal in the port's ``b``; a field the
+    port does not have is None in ``a``."""
     for f in dataclasses.fields(a):
+        if not hasattr(b, f.name):
+            assert getattr(a, f.name) is None, f.name
+            continue
         x, y = getattr(a, f.name), getattr(b, f.name)
         if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
             assert x is not None and y is not None, f.name
@@ -85,10 +92,6 @@ def test_sort_split_bucketize_match(num_parts):
     _assert_parts_equal(jpart.sort_partition_edges(jp),
                         tpart.sort_partition_edges(tp))
     _assert_parts_equal(jpart.split_edges(jp), tpart.split_edges(tp))
-    _assert_parts_equal(jpart.bucketize_partition(jp),
-                        tpart.bucketize_partition(tp))
-    _assert_parts_equal(jpart.bucketize_partition(jp, max_buckets=2),
-                        tpart.bucketize_partition(tp, max_buckets=2))
     nl = -(-200 // num_parts)
     np.testing.assert_array_equal(
         jpart._edge_origin_numpy(send, recv, nl, num_parts, tp.edges_per_part),
@@ -98,8 +101,8 @@ def test_sort_split_bucketize_match(num_parts):
     x = rng.randn(200, 3).astype(np.float32)
     ef = rng.randn(len(send), 2).astype(np.float32)
     for a, b in ((jp, tp),
-                 (jpart.bucketize_partition(jp),
-                  tpart.bucketize_partition(tp))):
+                 (jpart.sort_partition_edges(jp),
+                  tpart.sort_partition_edges(tp))):
         np.testing.assert_array_equal(a.scatter_features(x),
                                       b.scatter_features(x))
         np.testing.assert_array_equal(b.gather_outputs(b.scatter_features(x)),
@@ -148,13 +151,8 @@ def test_predict_layout_bytes_matches(hub):
     want = jlayout.predict_layout_bytes(deg, e, 64, dtype_bytes=2)
     f = jlayout.EDGE_WORK_FACTOR
     got = tlayout.predict_layout_bytes(
-        deg, e, 64, dtype_bytes=2,
-        work_factors={'csr': f, 'bucketed': f, 'generic': f},
-        ell_work_factor=jlayout.ELL_WORK_FACTOR)
-    want['csr'] = want.pop('pallas')
-    assert got == want
-    assert (tlayout._simulate_bucket_caps(deg)
-            == jlayout._simulate_bucket_caps(deg))
+        e, 64, dtype_bytes=2, work_factors={'csr': f, 'generic': f})
+    assert got == {'csr': want['pallas'], 'generic': want['generic']}
 
 
 def _hub(n, e, frac=0.3, seed=0):
@@ -167,10 +165,9 @@ def _hub(n, e, frac=0.3, seed=0):
 
 def test_choose_layout_decision_table():
     """The port's constants decide: on a card the CSR kernels whenever they
-    fit, at any edge count; without them the bucket table when it fits and
-    pads at most 2x, else generic (a hub blows the bucket table up);
-    nothing fitting names the partition.  The budget is BUDGET_SHARE of
-    the device's memory."""
+    fit, at any edge count and under a hub; without them generic, the
+    segment ops on the same sorted layout; nothing fitting names the
+    partition.  The budget is BUDGET_SHARE of the device's memory."""
     budget = tlayout.BUDGET_SHARE * 80 * 2 ** 30      # a card of 80 GiB
     host = os.sysconf('SC_PAGE_SIZE') * os.sysconf('SC_PHYS_PAGES')
     assert tlayout.device_budget_bytes('cpu') == tlayout.BUDGET_SHARE * host
@@ -181,10 +178,9 @@ def test_choose_layout_decision_table():
         c = tlayout.choose_layout(s, r, n, 64, budget)
         assert c.kernel == 'csr', c.reason
         c = tlayout.choose_layout(s, r, n, 64, budget, csr_kernels=False)
-        assert c.kernel == 'bucketed', c.reason
+        assert c.kernel == 'generic', c.reason
+        assert c.batch_kwargs == dict(sort_edges=True)
     s, r = _hub(n, e)
-    est = tlayout.predict_layout_bytes(np.bincount(r, minlength=n), e, 64)
-    assert est['bucketed'] > 3 * est['csr']
     assert tlayout.choose_layout(s, r, n, 64, budget).kernel == 'csr'
     assert tlayout.choose_layout(s, r, n, 64, budget,
                                  csr_kernels=False).kernel == 'generic'
