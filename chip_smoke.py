@@ -39,7 +39,13 @@ Phases (any failure raises, so the script exits non-zero):
    (F = 70, with the edge term and pad rows), timed beside the byte bound,
    the plain version and two ``index_select`` and their sum, and on whole
    and split nodes with rows outside every range at F = 1 to 75
-   (``edge_message_phase``);
+   (``edge_message_phase``); then the PNA layer's scaled posttrans
+   (``ops/posttrans.py``: one forward and one backward kernel) at the large
+   graph's layer (625,000 nodes, 4 towers of 16 in and out, 4 aggregators
+   x 3 scalers) and ZINC's b128 batch's (5 towers of 14 in, 14 and 12
+   out), within 1e-5 of its plain version, each direction timed after an L2
+   flush beside its bound, the plain version and the library's products
+   (``posttrans_phase``);
 4. train, the flagship ZINC step (PNANetMolecules, L=4, hidden 70, out 60,
    edge_dim 50, towers 5, 1024 synthetic graphs) on one set of weights, in
    four configurations: float32 on ``kernel='csr'`` (K1/K2) and on
@@ -135,7 +141,10 @@ Phases (any failure raises, so the script exits non-zero):
     ``csr``, ``csr_fused`` (``--edge_feat_dim 4``) and ``generic``: exact
     launches (4 K1 + 4 K2 per train step and 4 K1 per
     evaluation on ``csr``, K3/K4 alike on ``csr_fused``, none on the
-    others; the row sum's, ``LG_ROWSUM``), finite val losses, a falling train loss on the CSR backends,
+    others; the row sum's, ``LG_ROWSUM``; the scaled posttrans 4 forward
+    per train step and per evaluation and 4 backward per train step on
+    ``csr`` and ``csr_fused``, none on ``generic``), finite val losses, a
+    falling train loss on the CSR backends,
     train steps/s; ``--kernel auto`` prints its choice; 20 steps and a
     resume to 30 against the 30 straight ``csr`` steps (equal); and
     the trainer's step on ``csr``, ``csr_fused`` and ``generic`` at
@@ -243,6 +252,7 @@ from pna_tpu_torch.nn.sparse import (GATLayerSparse, GCNLayerSparse,
                                      PNASimpleLayerSparse, aggregate_bank)
 from pna_tpu_torch.ops import build, csr_bank, csr_kernels, rowsum
 from pna_tpu_torch.ops import csr_fused_kernels as fk
+from pna_tpu_torch.ops import posttrans as pt
 from pna_tpu_torch.ops.csr_bank import csr_layout, layout_from_graph
 from pna_tpu_torch.ops.csr_kernels import SEG, CSRSegments, csr_segments
 from pna_tpu_torch.parallel import multihost
@@ -1082,6 +1092,53 @@ GAT_ARGV = ['--model', 'gat', '--d_graph', '1', '--nodes', '100000',
 def max_gap(got, want) -> float:
     """The largest ``|got - want|`` over pairs of tensors."""
     return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
+POSTTRANS_SOURCE = "pna_tpu_torch/csrc/scaled_posttrans.cu"
+# the kernels against their plain versions: each output tensor's largest
+# gap over its largest entry (float32, sums in another order)
+POSTTRANS_GAP = 1e-5
+
+
+def posttrans_phase(dev):
+    """The scaled posttrans kernels (``ops/posttrans.py``) alone at the
+    large graph's layer and at ZINC's b128 batch's layers
+    (``timing.time_posttrans``): forward and backward within POSTTRANS_GAP
+    of their plain versions, timed after an L2 flush beside their bounds,
+    the plain version and the library's products."""
+    res = timing.time_posttrans(dev)
+    for name, r in res.items():
+        if not r['max_rel_gap'] <= POSTTRANS_GAP:
+            raise AssertionError(f"scaled posttrans {name}: gap "
+                                 f"{r['max_rel_gap']} to the plain version")
+        log(f"kernels[scaled posttrans {name}] N={r['nodes']} "
+            f"T={r['towers']} {r['ft']}/{r['fo']}: " + "; ".join(
+                f"{way} {r[way]['ms']:.4f} ms (bound {r[way]['bound_ms']:.4f}"
+                f" by {r[way]['bound_by']}, plain {r[way]['plain_ms']:.4f}, "
+                f"library {r[way]['library_ms']:.4f})"
+                for way in ('fwd', 'bwd')) + f"; gap {r['max_rel_gap']:.2e}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def posttrans_rows(res, largegraph):
+    """The kernels table's rows of the scaled posttrans: the large graph's
+    timings, its CLI's launches."""
+    csr = largegraph['cli']['csr']
+    return [{"name": name, "route": "cuda", "source": POSTTRANS_SOURCE,
+             "replaces": None,
+             "launches": csr['posttrans_counts'][name],
+             "max_rel_gap": max(r['max_rel_gap'] for r in res.values()),
+             "ms": res['largegraph'][way]['ms'],
+             "plain_ms": res['largegraph'][way]['plain_ms'],
+             "bound_ms": res['largegraph'][way]['bound_ms'],
+             "bound_by": res['largegraph'][way]['bound_by'],
+             "library_ms": res['largegraph'][way]['library_ms'],
+             "shapes": {k: dict({key: r[key] for key in
+                                 ('nodes', 'towers', 'ft', 'fo')}, **r[way])
+                        for k, r in res.items()}}
+            for name, way in (("scaled_posttrans_fwd", "fwd"),
+                              ("scaled_posttrans_bwd", "bwd"))]
 
 
 def gat_kernel_case(lay, hw, a_src, a_dst, s_src, s_dst, flush):
@@ -2658,11 +2715,24 @@ def largegraph_phase(dev, card):
     for kernel, extra in (('csr', []), ('csr_fused',
                                         ['--edge_feat_dim', str(LG_FE)]),
                           ('generic', [])):
+        pt.reset_launch_counts()
         hist, counts, lines, wall = lg_cli(kernel, LG_STEPS, evals, extra)
         want = lg_expected(kernel, LG_STEPS, evals)
         if counts != want:
             raise AssertionError(f"largegraph CLI {kernel}: launches "
                                  f"{counts}, expected {want}")
+        # the scaled posttrans: once a layer forward (train steps and
+        # evaluations) and backward (train steps); generic has its own
+        post = pt.launch_counts()
+        fused_bank = kernel != 'generic'
+        want_post = {
+            'scaled_posttrans_fwd': (LG_LAYERS * (LG_STEPS + evals)
+                                     if fused_bank else 0),
+            'scaled_posttrans_bwd': LG_LAYERS * LG_STEPS if fused_bank
+            else 0}
+        if post != want_post:
+            raise AssertionError(f"largegraph CLI {kernel}: posttrans "
+                                 f"launches {post}, expected {want_post}")
         losses = [h['train_loss'] for h in hist]
         if kernel in ('csr', 'csr_fused') and not losses[-1] < losses[0]:
             raise AssertionError(f"largegraph CLI {kernel}: the train loss "
@@ -2673,7 +2743,7 @@ def largegraph_phase(dev, card):
             edges_per_s=LargeGraphConfig.num_edges * LG_LAYERS * sps,
             first_loss=losses[0], last_loss=losses[-1],
             val_losses=[h['val_loss'] for h in hist if 'val_loss' in h],
-            counts=counts, wall_s=wall, history=hist)
+            counts=counts, posttrans_counts=post, wall_s=wall, history=hist)
         log(f"largegraph CLI {kernel}: {LG_STEPS} steps in {wall:.1f} s "
             f"(problem build included), {sps:.2f} train steps/s (steps "
             f"2..{LG_STEPS}, evaluations excluded), train loss {losses[0]:.5f} -> {losses[-1]:.5f},"
@@ -3270,6 +3340,7 @@ def main():
     k.update(fused_kernel_phase(graph, dev, flush))
     k[ROW_SUM] = rowsum_phase(graph, dev, flush)
     k[MSG] = edge_message_phase(dev)
+    post = posttrans_phase(dev)
     batches = pipeline_batches()
     pk, perr = pipeline_kernel_phase(batches, dev, flush)
     hcfg, hds = batches['hiv'][:2]
@@ -3387,7 +3458,7 @@ def main():
             label: r["launches_per_step"][name]
             for label, r in bench_res["table"].items()}
         kernels.append(row)
-    kernels += gat_rows
+    kernels += posttrans_rows(post, largegraph) + gat_rows
     summary = {kind: {key: val for key, val in pr.items()
                       if key != "launches"}
                for kind, pr in pipeline.items()}

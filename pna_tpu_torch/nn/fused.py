@@ -29,18 +29,21 @@ The math is the JAX layer's:
   after the scaler contraction in the posttrans);
 * a split-kernel pretrans: ``msg = src K_src + dst K_dst (+ e K_e) + b``, the
   concat never built; per-tower contractions are one matmul with a
-  block-diagonal weight (``_ein``), or one matmul when every tower shares its
-  input (``_ein_shared``, ``divide_input=False``).  On ``csr`` and
+  block-diagonal weight (``ops/posttrans.py::tower_ein``), or one matmul
+  when every tower shares its input (``shared_ein``,
+  ``divide_input=False``).  On ``csr`` and
   ``csr_fused`` only the node halves ``u = h K_src`` and ``v = h K_dst + b``
   are formed (the first layer is linear, so ``h[snd] K_src + h[rcv] K_dst +
   b == u[snd] + v[rcv]``), with the edge-feature term ``e K_e`` per edge: on
   ``csr`` a kernel builds the [E, F] messages from them, on ``csr_fused``
   K3/K4 build each message on chip; ``generic`` gathers the rows and
   multiplies them by edge;
-* a posttrans with the scaler axis folded into the output: the aggregator
-  tensor Z [N, A, T*Ft] meets a weight laid out to match it, and the S
-  scaler weights apply to the narrower [N, T, O, S] result; the generic path
-  contracts its materialised [N, S*A*T*Ft] bank;
+* a first posttrans layer that applies the S scaler weights after the
+  aggregator tensor Z [N, A, T*Ft] meets each tower's weight
+  (``ops/posttrans.py::scaled_posttrans``: on the card one hand-written
+  kernel a direction, which contracts the scalers in registers; elsewhere
+  the plain version, one matmul with the scaler axis folded into its
+  output); the generic path contracts its materialised [N, S*A*T*Ft] bank;
 * graph-norm, masked batch-norm, dropout, the ``mixing`` linear,
   leaky_relu(0.01), and the residual when ``in_dim == out_dim``.
 
@@ -100,6 +103,8 @@ from pna_tpu_torch.nn.sparse import (MaskedBatchNorm, aggregate_bank,
                                      bank_layout, check_bank)
 from pna_tpu_torch.ops import csr_bank, csr_fused, partial_stats
 from pna_tpu_torch.ops import scalers as scaler_ops
+from pna_tpu_torch.ops.posttrans import (round_to, scaled_posttrans,
+                                         shared_ein, tower_ein)
 from pna_tpu_torch.ops.segment import gather_rows
 from pna_tpu_torch.parallel import tower_tp
 from pna_tpu_torch.utils.profiling import span
@@ -168,32 +173,6 @@ def _phase(name: str, device):
     return span(name, device)
 
 
-def _round(x, cdt):
-    """``x`` rounded to the compute dtype and widened back to float32: a
-    matmul operand in ``cdt`` whose products are summed in float32."""
-    if cdt == torch.float32:
-        return x
-    return x.to(cdt).to(torch.float32)
-
-
-def _ein(x, k, cdt=torch.float32):
-    """x [..., T, fi], k [T, fi, fo] -> [..., T, fo] float32 as one matmul
-    with the block-diagonal weight, on operands rounded to ``cdt``."""
-    T, fi, fo = k.shape
-    kb = _round(torch.block_diag(*k.unbind(0)), cdt)     # [T*fi, T*fo]
-    lead = x.shape[:-2]
-    return (_round(x.reshape(lead + (T * fi,)), cdt) @ kb).reshape(
-        lead + (T, fo))
-
-
-def _ein_shared(x, k, cdt=torch.float32):
-    """x [..., fi] shared by every tower, k [T, fi, fo] -> [..., T, fo]
-    float32, on operands rounded to ``cdt``."""
-    T, fi, fo = k.shape
-    kb = _round(k.permute(1, 0, 2).reshape(fi, T * fo), cdt)
-    return (_round(x, cdt) @ kb).reshape(x.shape[:-1] + (T, fo))
-
-
 def _mlp_dims(in_size, hidden, out, layers):
     return ([in_size] + [hidden] * (layers - 1) + [out] if layers > 1
             else [in_size, out])
@@ -220,7 +199,7 @@ class StackedParams(nn.Module):
         """Layers 1.. on x [..., T, F]: relu, then the next tower dense."""
         for i in range(1, self.n):
             k, b = self.layer(i)
-            x = _ein(torch.relu(x), k, cdt) + b
+            x = tower_ein(torch.relu(x), k, cdt) + b
         return x
 
 
@@ -347,9 +326,9 @@ class PNALayerFused(nn.Module):
             message a node sends itself ('identity')."""
             if self.divide_input:
                 xs = x.reshape(N, T, Ft)
-                m = _ein(xs, k_src, cdt) + _ein(xs, k_dst, cdt)
+                m = tower_ein(xs, k_src, cdt) + tower_ein(xs, k_dst, cdt)
             else:
-                m = _ein_shared(x, k_src, cdt) + _ein_shared(x, k_dst, cdt)
+                m = shared_ein(x, k_src, cdt) + shared_ein(x, k_dst, cdt)
             return self.pretrans.rest(m + b0, cdt)
 
         def node_halves():
@@ -357,11 +336,11 @@ class PNALayerFused(nn.Module):
             [Nu, T*Ft] over the rows the senders index, v = h K_dst + b0
             [N, T*Ft]; an edge's message is u[snd] + v[rcv] (+ e K_e)."""
             if self.divide_input:
-                u = _ein(src_rows.reshape(-1, T, Ft), k_src, cdt)
-                v = _ein(hb.reshape(N, T, Ft), k_dst, cdt)
+                u = tower_ein(src_rows.reshape(-1, T, Ft), k_src, cdt)
+                v = tower_ein(hb.reshape(N, T, Ft), k_dst, cdt)
             else:
-                u = _ein_shared(src_rows, k_src, cdt)
-                v = _ein_shared(hb, k_dst, cdt)
+                u = shared_ein(src_rows, k_src, cdt)
+                v = shared_ein(hb, k_dst, cdt)
             return u.reshape(-1, T * Ft), (v + b0).reshape(N, T * Ft)
 
         def pretrans_edges(src, dst, eterm):
@@ -369,13 +348,13 @@ class PNALayerFused(nn.Module):
             later layers: [K, T, Ft] float32."""
             K = src.shape[0]
             if self.divide_input:
-                msg = (_ein(src.reshape(K, T, Ft), k_src, cdt)
-                       + _ein(dst.reshape(K, T, Ft), k_dst, cdt))
+                msg = (tower_ein(src.reshape(K, T, Ft), k_src, cdt)
+                       + tower_ein(dst.reshape(K, T, Ft), k_dst, cdt))
             else:
-                msg = (_ein_shared(src, k_src, cdt)
-                       + _ein_shared(dst, k_dst, cdt))
+                msg = (shared_ein(src, k_src, cdt)
+                       + shared_ein(dst, k_dst, cdt))
             if eterm is not None:
-                msg = msg + _ein_shared(eterm, k0[:, 2 * Ft:], cdt)
+                msg = msg + shared_ein(eterm, k0[:, 2 * Ft:], cdt)
             return self.pretrans.rest(msg + b0, cdt)
 
         src_rows = (hb if sender_table is None
@@ -410,7 +389,7 @@ class PNALayerFused(nn.Module):
                 u, v = node_halves()
                 w = None
                 if self.edge_features:
-                    w = _ein_shared(e, k0[:, 2 * Ft:], cdt).reshape(
+                    w = shared_ein(e, k0[:, 2 * Ft:], cdt).reshape(
                         E, T * Ft)
                 msg = csr_bank.csr_messages(u, v, w, layout)
                 # stored in the compute dtype; the bank widens to float32
@@ -449,42 +428,30 @@ class PNALayerFused(nn.Module):
                                      self.avg_d, self_msg=self_msg,
                                      layout=layout)
 
-        # ---- posttrans with the scaler axis folded into the output ----
+        # ---- posttrans: the scalers applied after the first layer ----
         with _phase('pna.update', dev):
             kp, bp = self.posttrans.layer(0)
-            k_h = kp[:, :Ft]                                # [T, Ft, Fo]
             if backend == 'generic':
+                k_h = kp[:, :Ft]                            # [T, Ft, Fo]
                 # rows Ft + (s*A + a)*Ft + f of tower t <- bank column
                 # ((s*A + a)*T + t)*Ft + f
                 k_agg = kp[:, Ft:].reshape(T, S * A, Ft, Fo)
                 if self.divide_input:
                     out = torch.einsum('ntf,tfo->nto',
-                                       _round(hb.reshape(N, T, Ft), cdt),
-                                       _round(k_h, cdt))
+                                       round_to(hb.reshape(N, T, Ft), cdt),
+                                       round_to(k_h, cdt))
                 else:
-                    out = _ein_shared(hb, k_h, cdt)
+                    out = shared_ein(hb, k_h, cdt)
                 out = out + torch.einsum(
                     'nxtf,txfo->nto',
-                    _round(agg.reshape(N, S * A, T, Ft), cdt),
-                    _round(k_agg, cdt)) + bp
+                    round_to(agg.reshape(N, S * A, T, Ft), cdt),
+                    round_to(k_agg, cdt)) + bp
             else:
                 w = scaler_ops.scaler_weights(self.scalers, deg,
                                               self.avg_d)   # [S, N]
-                # rows of kp per tower: [0:Ft] = h part;
-                # Ft + s*A*Ft + a*Ft + f
-                k_agg = kp[:, Ft:].reshape(T, S, A, Ft, Fo)
-                if self.divide_input:
-                    out = _ein(hb.reshape(N, T, Ft), k_h, cdt)
-                else:
-                    out = _ein_shared(hb, k_h, cdt)
-                eye = torch.eye(T, dtype=kp.dtype, device=kp.device)
-                W = _round(torch.einsum(
-                    'tsafo,tu->atfuos', k_agg, eye).reshape(
-                        A * T * Ft, T * Fo * S), cdt)
-                y = (_round(Z.reshape(N, A * T * Ft), cdt) @ W).reshape(
-                    N, T, Fo, S)
-                out = out + torch.einsum('ntos,sn->nto', _round(y, cdt),
-                                         _round(w, cdt)) + bp
+                out = scaled_posttrans(Z.reshape(N, A, T * Ft), hb, w, kp,
+                                       bp, shared=not self.divide_input,
+                                       cdt=cdt)
             out = self.posttrans.rest(out, cdt).reshape(N, T * Fo)
             if self.tp_group is not None:
                 # [N, towers*Fo]

@@ -3,6 +3,7 @@ it times on, and commands that time K1 and K2 alone and the row sum alone.
 
     python -m pna_tpu_torch.ops.timing
     python -m pna_tpu_torch.ops.timing --rowsum
+    python -m pna_tpu_torch.ops.timing --posttrans
 
 builds the kernels, times ``csr_moment_sketch`` (with and without tie counts)
 and ``csr_dmsg`` through their wrappers at the flagship ZINC step's shapes
@@ -36,6 +37,16 @@ F = 70, with the edge-feature term), each after a dirty and a clean flush,
 beside its byte bound, its plain version and the library's yardstick (two
 ``index_select`` and their sum), and prints one JSON line.  Only a tree
 that has the kernel runs it.
+
+``--posttrans`` times the PNA layer's scaled posttrans (``ops/posttrans.py``)
+at the large graph's layer (625,000 nodes, 4 towers of 16 in and 16 out, 4
+aggregators x 3 scalers) and at ZINC's (a b128 batch's 2,944 nodes, 5 towers
+of 14 in, 14 and 12 out): the forward and the backward kernels after a dirty
+flush, each beside its bound (``posttrans_bytes``, ``posttrans_flops``), the
+plain version (autograd's backward alone for the backward) and the library's
+yardstick (``z @ W`` and the einsum with w, W built beforehand; backward: the
+einsum forming d_y and the two products of d_z and d_W), and prints one JSON
+line.  Only a tree that has the kernels runs it.
 """
 
 from __future__ import annotations
@@ -367,6 +378,97 @@ def time_edge_message(dev) -> dict:
     return out
 
 
+def posttrans_bytes(n, t, ft, fo, a, s, shared=False, backward=False):
+    """The bytes the scaled posttrans must move, float32: z, h and w read
+    once and out written once; backward d_out, z, h and w read once, d_z and
+    d_h written once."""
+    z, h, w, o = n * a * t * ft, n * (ft if shared else t * ft), s * n, \
+        n * t * fo
+    return 4 * (2 * z + 2 * h + w + o if backward else z + h + w + o)
+
+
+def posttrans_flops(n, t, ft, fo, a, s, backward=False):
+    """Its float32 operations: 2 N T (A S Ft Fo + Ft Fo) forward (each
+    tower's products at its own width, the scalers' products), twice that
+    backward."""
+    return (2 if backward else 1) * 2 * n * t * (a * s * ft * fo + ft * fo)
+
+
+def posttrans_cases(dev, gen):
+    """name -> (z, h, w, kp, bp, d_out) at the large graph's layer and at
+    ZINC's b128 batch's layers."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    out = {}
+    for name, (n, t, ft, fo) in (("largegraph", (625_000, 4, 16, 16)),
+                                 ("zinc_b128", (2_944, 5, 14, 14)),
+                                 ("zinc_b128_last", (2_944, 5, 14, 12))):
+        out[name] = (rnd(n, 4, t * ft), rnd(n, t * ft),
+                     (torch.rand(3, n, generator=gen) + 0.5).to(dev),
+                     rnd(t, 13 * ft, fo) / ft, rnd(t, fo), rnd(n, t, fo))
+    return out
+
+
+def time_posttrans(dev) -> dict:
+    """The scaled posttrans at every shape of ``posttrans_cases``: forward
+    and backward, kernel (after a dirty flush), bound, plain version,
+    library; the kernels' largest gap to the plain version."""
+    from pna_tpu_torch.ops import posttrans as pt
+    flush = flush_buffer(dev)
+    res = {}
+    for name, (z, h, w, kp, bp, d_out) in posttrans_cases(
+            dev, torch.Generator().manual_seed(14)).items():
+        n, a, tf = z.shape
+        t, _, fo = kp.shape
+        ft, s = tf // t, w.shape[0]
+        with torch.no_grad():
+            kagg = kp[:, ft:].reshape(t, s, a, ft, fo)
+            W = torch.einsum('tsafo,tu->atfuos', kagg, torch.eye(
+                t, device=dev)).reshape(a * t * ft, t * fo * s)
+        zf = z.reshape(n, a * t * ft)
+
+        def library_fwd():
+            y = (zf @ W).reshape(n, t, fo, s)
+            return torch.einsum('ntos,sn->nto', y, w)
+
+        def library_bwd():
+            dy = torch.einsum('nto,sn->ntos', d_out, w).reshape(n, -1)
+            return dy @ W.t(), zf.t() @ dy
+
+        zg, hg, kg, bg = (x.clone().requires_grad_() for x in (z, h, kp, bp))
+        plain_out = pt.scaled_posttrans_plain(zg, hg, w, kg, bg)
+
+        def plain_bwd():
+            return torch.autograd.grad(plain_out, (zg, hg, kg, bg), d_out,
+                                       retain_graph=True)
+
+        got = (pt.scaled_posttrans_fwd(z, h, w, kp, bp),
+               *pt.scaled_posttrans_bwd(z, h, w, kp, d_out))
+        want = (plain_out.detach(), *plain_bwd())
+        gap = max(float((g - x).abs().max() / x.abs().max())
+                  for g, x in zip(got, want))
+        row = dict(nodes=n, towers=t, ft=ft, fo=fo, max_rel_gap=gap)
+        for way, kernel, plain, library in (
+                ("fwd", lambda: pt.scaled_posttrans_fwd(z, h, w, kp, bp),
+                 lambda: pt.scaled_posttrans_plain(z, h, w, kp, bp),
+                 library_fwd),
+                ("bwd", lambda: pt.scaled_posttrans_bwd(z, h, w, kp, d_out),
+                 plain_bwd, library_bwd)):
+            back = way == "bwd"
+            bound, by = bound_ms(posttrans_bytes(n, t, ft, fo, a, s,
+                                                 backward=back),
+                                 posttrans_flops(n, t, ft, fo, a, s,
+                                                 backward=back))
+            with torch.no_grad() if not back else torch.enable_grad():
+                row[way] = dict(bound_ms=bound, bound_by=by,
+                                ms=time_cuda(kernel, flush),
+                                plain_ms=time_cuda(plain, flush),
+                                library_ms=time_cuda(library, flush))
+        res[name] = row
+    return res
+
+
 def gat_case(n, e, heads, f, dev, seed=0, seg=None):
     """A GAT layer's attention inputs at (n receivers, e edges): the large
     graph's power-law senders (``partition.powerlaw_graph``, exponent 1.5:
@@ -398,6 +500,7 @@ def main(argv=None):
     dev = torch.device("cuda")
     times = (time_row_sum(dev) if argv == ["--rowsum"]
              else time_edge_message(dev) if argv == ["--edge-message"]
+             else time_posttrans(dev) if argv == ["--posttrans"]
              else time_csr_kernels(dev))
     print(json.dumps({"card": card_line(), **times}), flush=True)
 

@@ -36,6 +36,7 @@ import torch
 from pna_tpu_torch.ops import build
 from pna_tpu_torch.ops import csr_fused_kernels as fk
 from pna_tpu_torch.ops import csr_kernels as ck
+from pna_tpu_torch.ops import posttrans as pt
 from pna_tpu_torch.ops import rowsum
 from tests.test_torch_cuda import (CASES, GHOST, layout_case, segment_case,
                                    sketch_case)
@@ -190,7 +191,8 @@ def lib(tmp_path_factory):
         with open(os.path.join(build.CSRC_DIR, name)) as f:
             text = _for_host(f.read())
         if name in ("csr_moment_sketch.cu", "csr_dmsg.cu",
-                    "sorted_row_sum.cu", "csr_edge_message.cu"):
+                    "sorted_row_sum.cu", "csr_edge_message.cu",
+                    "scaled_posttrans.cu"):
             name += ".cpp"
             units.append(name)
         (tmp / name).write_text(text)
@@ -207,6 +209,10 @@ def lib(tmp_path_factory):
     lib.pna_sorted_row_sum.argtypes = [p, i, p, p, i, p, i, i, i, p, i, p,
                                        p]
     lib.pna_csr_edge_message.argtypes = [p] * 6 + [i] * 4 + [p, p]
+    lib.pna_scaled_posttrans_grid.argtypes = [i] * 5 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    lib.pna_scaled_posttrans_fwd.argtypes = [p] * 5 + [i] * 10 + [p, p]
+    lib.pna_scaled_posttrans_bwd.argtypes = [p] * 5 + [i] * 10 + [p] * 6
     return lib
 
 
@@ -509,3 +515,137 @@ def test_host_edge_message_matches_plain_bit_for_bit(lib, f, with_w):
             got = _edge_message(lib, uu, v, snd, ptr, w, segs)
             assert torch.equal(got, want)
 
+
+
+# the posttrans kernels' cases: (N, T, Ft, Fo, shared h, bfloat16); the
+# widths are the instantiated ones (the cell's 16/16, ZINC's 14/14 and 14/12)
+POSTTRANS_CASES = {
+    "cell": (300, 4, 16, 16, False, False),      # 3 tiles, the last partial
+    "zinc_last": (130, 5, 14, 12, False, False),
+    "zinc": (1, 5, 14, 14, False, False),        # one node
+    "one_tower": (200, 1, 16, 16, False, False),  # a rank of tower TP
+    "shared_h": (129, 4, 16, 16, True, False),
+    "bf16": (300, 4, 16, 16, False, True),
+}
+
+
+def _posttrans_inputs(n, t, ft, fo, shared, seed, a=4, s=3):
+    gen = torch.Generator().manual_seed(seed)
+    z = torch.randn(n, a, t * ft, generator=gen)
+    h = torch.randn(n, ft if shared else t * ft, generator=gen)
+    w = torch.rand(s, n, generator=gen) + 0.5
+    kp = torch.randn(t, (a * s + 1) * ft, fo, generator=gen) / ft
+    bp = torch.randn(t, fo, generator=gen)
+    d_out = torch.randn(n, t, fo, generator=gen)
+    return z, h, w, kp, bp, d_out
+
+
+def _posttrans_host(lib, z, h, w, kp, bp, d_out, shared, rnd):
+    """The kernels through the host build: (out, d_z, d_h, d_kp, d_bp), every
+    output starting as NaN."""
+    n, a, tf = z.shape
+    t, _, fo = kp.shape
+    ft, s = tf // t, w.shape[0]
+    hw, hs = (ft, 0) if shared else (t * ft, ft)
+    out = torch.full((n, t, fo), float("nan"))
+    blocks, parts = ctypes.c_int(0), ctypes.c_int(0)
+    assert lib.pna_scaled_posttrans_grid(t, ft, fo, a, s,
+                                         ctypes.byref(blocks),
+                                         ctypes.byref(parts)) == 0
+    # the stub's card holds 4 blocks; a launch takes at most one a tile
+    assert blocks.value == parts.value == max(1, 4 // t)
+    rc = lib.pna_scaled_posttrans_fwd(
+        z.data_ptr(), h.data_ptr(), w.data_ptr(), kp.data_ptr(),
+        bp.data_ptr(), n, t, ft, fo, a, s, hw, hs, rnd, blocks.value,
+        out.data_ptr(), None)
+    assert rc == 0
+    part = torch.full((t, parts.value, a * s * ft * fo + ft * fo + fo),
+                      float("nan"))
+    d_z, d_h = torch.full_like(z, float("nan")), torch.full(
+        (n, t * ft), float("nan"))
+    d_kp, d_bp = torch.full_like(kp, float("nan")), torch.full_like(
+        bp, float("nan"))
+    rc = lib.pna_scaled_posttrans_bwd(
+        z.data_ptr(), h.data_ptr(), w.data_ptr(), kp.data_ptr(),
+        d_out.data_ptr(), n, t, ft, fo, a, s, hw, hs, rnd, parts.value,
+        part.data_ptr(), d_z.data_ptr(), d_h.data_ptr(), d_kp.data_ptr(),
+        d_bp.data_ptr(), None)
+    assert rc == 0
+    if shared:
+        d_h = d_h.reshape(n, t, ft).sum(1)
+    return out, d_z, d_h, d_kp, d_bp
+
+
+def _gap(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1))
+
+
+def _plain_grads(z, h, w, kp, bp, d_out, shared, cdt):
+    """(out, d_z, d_h, d_kp, d_bp) of the plain version, by autograd."""
+    z, h, kp, bp = (x.clone().requires_grad_() for x in (z, h, kp, bp))
+    out = pt.scaled_posttrans_plain(z, h, w, kp, bp, shared, cdt)
+    return (out.detach(), *torch.autograd.grad(out, (z, h, kp, bp), d_out))
+
+
+@pytest.mark.parametrize("case", list(POSTTRANS_CASES))
+def test_host_scaled_posttrans_matches_plain(lib, case):
+    """The posttrans kernels (``csrc/scaled_posttrans.cu``) at each shape
+    they are built for, against the plain version (``ops/posttrans.py``),
+    forward and its gradients by autograd: every output entry written (all
+    start as NaN), within 1e-5 of each tensor's largest entry in float32
+    (another order of addition); with bfloat16 roundings within 1e-2 (a
+    product summed in another order may round to the neighbouring bfloat16
+    value), d_h once rounded, as the backward of ``scaled_posttrans``'s cast
+    of h rounds it.  N spans partial tiles, one node, one tower, shared h;
+    the backward walks several tiles a block (the stub's card holds 4
+    blocks).  A second run gives the same bits."""
+    n, t, ft, fo, shared, bf16 = POSTTRANS_CASES[case]
+    cdt = torch.bfloat16 if bf16 else torch.float32
+    z, h, w, kp, bp, d_out = _posttrans_inputs(n, t, ft, fo, shared,
+                                               sorted(POSTTRANS_CASES).index(
+                                                   case))
+    if bf16:
+        h = pt.round_to(h, cdt)
+    got = _posttrans_host(lib, z, h, w, kp, bp, d_out, shared, int(bf16))
+    want = _plain_grads(z, h, w, kp, bp, d_out, shared, cdt)
+    tol = 1e-2 if bf16 else 1e-5
+    for name, g, x in zip(("out", "d_z", "d_h", "d_kp", "d_bp"), got, want):
+        assert not torch.isnan(g).any(), name
+        if name == "d_h":
+            g = pt.round_to(g, cdt)
+        assert _gap(g, x) <= tol, (name, _gap(g, x))
+        if bf16 and name in ("d_z", "d_kp"):
+            # rounded as written: bfloat16 values, most of them the plain
+            # version's own
+            assert bool((g.view(torch.int32) & 0xFFFF == 0).all()), name
+            assert float((g == x).float().mean()) > 0.9, name
+    again = _posttrans_host(lib, z, h, w, kp, bp, d_out, shared, int(bf16))
+    for g, x in zip(got, again):
+        assert torch.equal(g, x)
+
+
+def test_host_scaled_posttrans_refuses_bad_sizes(lib):
+    """No nodes: the forward launches nothing and succeeds; no tower: the
+    grid is refused; a width it is not built for, an h narrower than its
+    towers read, and no block, are refused before any launch.  More blocks
+    a tower than tiles are cut to one a tile."""
+    z, h, w, kp, bp, _ = _posttrans_inputs(4, 2, 16, 16, False, 0)
+    out = torch.full((4, 2, 16), float("nan"))
+    args = (z.data_ptr(), h.data_ptr(), w.data_ptr(), kp.data_ptr(),
+            bp.data_ptr())
+    assert lib.pna_scaled_posttrans_fwd(*args, 0, 2, 16, 16, 4, 3, 32, 16,
+                                        0, 0, out.data_ptr(), None) == 0
+    assert lib.pna_scaled_posttrans_fwd(*args, 4, 2, 16, 8, 4, 3, 32, 16, 0,
+                                        1, out.data_ptr(), None) != 0
+    assert lib.pna_scaled_posttrans_fwd(*args, 4, 2, 16, 16, 4, 3, 16, 16,
+                                        0, 1, out.data_ptr(), None) != 0
+    assert lib.pna_scaled_posttrans_fwd(*args, 4, 2, 16, 16, 4, 3, 32, 16,
+                                        0, 0, out.data_ptr(), None) != 0
+    assert bool(torch.isnan(out).all())
+    blocks, parts = ctypes.c_int(0), ctypes.c_int(0)
+    assert lib.pna_scaled_posttrans_grid(0, 16, 16, 4, 3,
+                                         ctypes.byref(blocks),
+                                         ctypes.byref(parts)) != 0
+    assert lib.pna_scaled_posttrans_fwd(*args, 4, 2, 16, 16, 4, 3, 32, 16,
+                                        0, 2, out.data_ptr(), None) == 0
+    assert not bool(torch.isnan(out).any())

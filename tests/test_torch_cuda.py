@@ -47,6 +47,7 @@ import torch
 from pna_tpu_torch.ops import csr_bank
 from pna_tpu_torch.ops import csr_fused_kernels as fk
 from pna_tpu_torch.ops import csr_kernels as ck
+from pna_tpu_torch.ops import posttrans as pt
 
 F = 12
 FE = 5
@@ -1573,3 +1574,177 @@ def test_cuda_gat_step_launches_and_repeats():
         assert torch.equal(v, states[1][k]), k
     _, cpu_step = _gat_step('cpu')
     np.testing.assert_allclose(losses[0], cpu_step(), rtol=1e-5)
+
+
+# -- the scaled posttrans (ops/posttrans.py, csrc/scaled_posttrans.cu) -------
+
+# (N, towers, Ft, Fo, shared h, bfloat16): the large-graph cell's layer,
+# ZINC's (70 wide, the last layer 60 out), one local tower of two (tower
+# TP), the shared-h form, bfloat16 compute, one node, no node, and N off
+# the 128-node tile
+POSTTRANS_CASES = {
+    'cell': (625_000, 4, 16, 16, False, False),
+    'zinc': (2_900, 5, 14, 14, False, False),
+    'zinc_last': (2_900, 5, 14, 12, False, False),
+    'tower_tp': (20_000, 1, 16, 16, False, False),
+    'shared_h': (20_000, 4, 16, 16, True, False),
+    'bf16': (20_000, 4, 16, 16, False, True),
+    'one_node': (1, 4, 16, 16, False, False),
+    'no_node': (0, 4, 16, 16, False, False),
+    'off_tile': (1_000, 4, 16, 16, False, False),
+}
+
+
+def _posttrans_case(n, t, ft, fo, shared, dtype=torch.float32, seed=0,
+                    a=4, s=3):
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to('cuda', dtype)
+
+    z = rnd(n, a, t * ft)
+    h = rnd(n, ft if shared else t * ft)
+    w = (torch.rand(s, n, generator=gen) + 0.5).to('cuda', dtype)
+    kp = rnd(t, (a * s + 1) * ft, fo) / ft
+    bp = rnd(t, fo)
+    d_out = rnd(n, t, fo)
+    return z, h, w, kp, bp, d_out
+
+
+def _posttrans_grads(z, h, w, kp, bp, d_out, shared, cdt, kernel):
+    """(out, d_z, d_h, d_kp, d_bp) through ``scaled_posttrans`` (the
+    kernels) or the plain version, by autograd."""
+    z, h, kp, bp = (x.clone().requires_grad_() for x in (z, h, kp, bp))
+    fn = pt.scaled_posttrans if kernel else (
+        lambda *a, **k: pt.scaled_posttrans_plain(*a, k['shared'],
+                                                  k['cdt']))
+    # the layer passes h in the compute dtype
+    hin = h if cdt == torch.float32 else h.to(cdt)
+    out = fn(z, hin, w, kp, bp, shared=shared, cdt=cdt)
+    out.backward(d_out)
+    return out.detach(), z.grad, h.grad, kp.grad, bp.grad
+
+
+def _err(got, want):
+    return float((got.double() - want).abs().max()) if got.numel() else 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(POSTTRANS_CASES))
+def test_cuda_scaled_posttrans_matches_plain(case):
+    """The kernels against the plain version on the card, forward and every
+    gradient (d_z, d_h, d_kp, d_bp), one forward and one backward launch a
+    call (none without nodes) and two calls bit-equal.  Float32: each tensor's largest error
+    against the plain version in float64 within twice the float32 plain
+    version's own plus 1e-5 of the tensor's largest entry (the sums run in
+    another order, the kernel's d_kp over ~10,000 nodes a thread at the
+    cell; no TF32).  Bfloat16: within 1e-2 of the largest entry of
+    the plain bfloat16 version (a sum in another order may round to the
+    neighbouring bfloat16 value)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, t, ft, fo, shared, bf16 = POSTTRANS_CASES[case]
+    cdt = torch.bfloat16 if bf16 else torch.float32
+    inputs = _posttrans_case(n, t, ft, fo, shared)
+    assert pt.kernel_supports(inputs[0], inputs[3], inputs[2])
+    pt.reset_launch_counts()
+    got = _posttrans_grads(*inputs, shared, cdt, kernel=True)
+    again = _posttrans_grads(*inputs, shared, cdt, kernel=True)
+    torch.cuda.synchronize()
+    k = 2 if n else 0
+    assert pt.launch_counts() == {'scaled_posttrans_fwd': k,
+                                  'scaled_posttrans_bwd': k}
+    for g, x in zip(got, again):
+        assert torch.equal(g, x)
+    plain = _posttrans_grads(*inputs, shared, cdt, kernel=False)
+    names = ('out', 'd_z', 'd_h', 'd_kp', 'd_bp')
+    if bf16:
+        for name, g, x in zip(names, got, plain):
+            scale = max(float(x.abs().max()), 1.0)
+            assert _err(g, x.double()) <= 1e-2 * scale, name
+        return
+    exact = _posttrans_grads(*(x.double() for x in inputs), shared,
+                             torch.float32, kernel=False)
+    for name, g, p, x in zip(names, got, plain, exact):
+        assert g.dtype == torch.float32 and g.shape == x.shape, name
+        scale = float(x.abs().max()) if x.numel() else 0.0
+        assert _err(g, x) <= 2 * _err(p, x) + 1e-5 * scale, (
+            name, _err(g, x), _err(p, x))
+
+
+@pytest.mark.cuda
+def test_cuda_scaled_posttrans_refuses_a_gradient_of_w():
+    _need_card()
+    z, h, w, kp, bp, _ = _posttrans_case(300, 4, 16, 16, False)
+    with pytest.raises(ValueError, match="w takes no gradient"):
+        pt.scaled_posttrans(z, h, w.requires_grad_(), kp, bp)
+
+
+def _pna_largegraph_step(seed=0):
+    """A training step of the large-graph PNA net at the cell's widths
+    (hidden 64, 4 towers, 4 layers) on a 20,000-node power-law graph."""
+    from pna_tpu_torch.parallel.distributed_net import DistributedPNANet
+    from pna_tpu_torch.parallel.partition import (partition_edges,
+                                                  sort_partition_edges)
+    from pna_tpu_torch.train.largegraph import make_node_train_step
+    rng = np.random.RandomState(seed)
+    n, e = 20_000, 200_000
+    w = np.arange(1, n + 1, dtype=np.float64) ** -1.5
+    send = rng.permutation(n)[rng.choice(n, size=e, p=w / w.sum())]
+    recv = rng.randint(0, n, e)
+    part = sort_partition_edges(partition_edges(send, recv, n, 1))
+    net = DistributedPNANet(8, hidden_dim=64, out_dim=64, n_layers=4,
+                            towers=4, batch_norm=True, residual=True,
+                            kernel='csr', node_level=True,
+                            avg_d={'log': 2.0}, device='cuda', seed=seed)
+    opt = torch.optim.Adam(net.parameters(), lr=1e-3)
+    step, _, _ = make_node_train_step(part, None, net, opt)
+
+    def mine(x):
+        return torch.as_tensor(np.ascontiguousarray(x[0])).to('cuda')
+
+    x = mine(part.scatter_features(rng.randn(n, 8).astype(np.float32)))
+    y = mine(part.scatter_features(rng.randn(n, 1).astype(np.float32))
+             )[..., 0]
+    mask = mine(part.node_mask)
+    return lambda: step(x, y, mask)
+
+
+@pytest.mark.cuda
+def test_cuda_scaled_posttrans_launches_once_a_layer_and_direction():
+    """A large-graph training step at the cell's widths launches the
+    posttrans kernels once a layer forward and once backward (4 and 4), and
+    the update phase's forward launches no ``gemv`` and no product of the
+    scaler contraction (no ``bmm``, ``einsum``, ``mm`` or ``matmul``: the
+    profile's kernels by the host operations that launched them); its one
+    product a layer is the mixing layer's ``addmm``."""
+    _need_card()
+    step = _pna_largegraph_step()
+    step()
+    torch.cuda.synchronize()
+    pt.reset_launch_counts()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        assert np.isfinite(step())
+        torch.cuda.synchronize()
+    assert pt.launch_counts() == {'scaled_posttrans_fwd': 4,
+                                  'scaled_posttrans_bwd': 4}
+    launched = []
+    for ev in prof.events():
+        chain, p = [], ev
+        while p is not None:
+            chain.append(p.name)
+            p = p.cpu_parent
+        launched += [(k.name, chain) for k in ev.kernels]
+    names = [k for k, _ in launched]
+    assert sum('scaled_posttrans_fwd_kernel' in k for k in names) == 4
+    assert sum('scaled_posttrans_bwd_kernel' in k for k in names) == 4
+    update = [(k[:60], chain) for k, chain in launched
+              if 'pna.update' in chain]
+    mixing = [k for k, chain in update if 'aten::addmm' in chain]
+    scalers = [(k, chain) for k, chain in update
+               if 'gemv' in k.lower() or any(
+                   op in chain for op in ('aten::bmm', 'aten::einsum',
+                                          'aten::mm', 'aten::matmul'))]
+    assert len(mixing) == 4 and not scalers, scalers

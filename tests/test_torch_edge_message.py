@@ -30,7 +30,8 @@ import pytest
 import torch
 
 from pna_tpu_torch.graph import batch_graphs
-from pna_tpu_torch.nn.fused import PNALayerFused, _ein, _ein_shared
+from pna_tpu_torch.nn.fused import PNALayerFused
+from pna_tpu_torch.ops.posttrans import shared_ein, tower_ein
 from pna_tpu_torch.ops import csr_bank
 from pna_tpu_torch.ops import csr_fused_kernels as fk
 from pna_tpu_torch.ops import csr_kernels as ck
@@ -145,12 +146,13 @@ def _edge_form(layer, graph, h, e):
     dst = gather_rows(hb, graph.receivers, graph.edge_ptr)
     E = src.shape[0]
     if layer.divide_input:
-        msg = (_ein(src.reshape(E, Tl, Ft), k_src, cdt)
-               + _ein(dst.reshape(E, Tl, Ft), k_dst, cdt))
+        msg = (tower_ein(src.reshape(E, Tl, Ft), k_src, cdt)
+               + tower_ein(dst.reshape(E, Tl, Ft), k_dst, cdt))
     else:
-        msg = _ein_shared(src, k_src, cdt) + _ein_shared(dst, k_dst, cdt)
+        msg = (shared_ein(src, k_src, cdt)
+               + shared_ein(dst, k_dst, cdt))
     if layer.edge_features:
-        msg = msg + _ein_shared(e, k0[:, 2 * Ft:], cdt)
+        msg = msg + shared_ein(e, k0[:, 2 * Ft:], cdt)
     return (msg + b0).reshape(E, Tl * Ft)
 
 
